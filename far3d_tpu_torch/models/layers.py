@@ -1,0 +1,158 @@
+"""Shared building blocks (counterpart of ``far3d_tpu/models/layers.py``).
+
+Every layer here computes in the dtype of its input, as the flax layers of the
+JAX package do (``dtype=x.dtype``): the parameters stay f32 and are cast at
+the call. So bf16 images keep the backbone, FPN and 2D head in bf16, while the
+f32 query-side tensors of the head stay f32.
+
+Parameter names follow the reference checkpoint's keys, so a reference
+``state_dict`` loads with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` computing in the input's dtype."""
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm that always normalizes with its stored running statistics
+    (the reference runs the backbone BN with norm_eval=True). The scale and
+    shift are folded in f32 and applied in the input's dtype
+    (layers.py:15-37)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer('running_mean', torch.zeros(features))
+        self.register_buffer('running_var', torch.ones(features))
+
+    def forward(self, x):
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        shift = self.bias - self.running_mean * inv
+        shape = (1, -1, 1, 1)
+        return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv (symmetric (k-1)//2 padding, no bias) -> frozen BN -> ReLU, the
+    reference VoVNet's conv3x3/conv1x1 block (layers.py:40-62).
+
+    The reference names the parts ``<prefix>/conv`` and ``<prefix>/norm``
+    inside its parent; so does this block. Use ``chain`` to put several blocks
+    into one flat parent, as the reference stem does."""
+
+    def __init__(self, prefix: str, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1):
+        p = (kernel - 1) // 2
+        super().__init__(OrderedDict([
+            (f'{prefix}/conv', Conv2d(in_ch, out_ch, kernel, stride=stride,
+                                      padding=p, bias=False)),
+            (f'{prefix}/norm', FrozenBatchNorm(out_ch)),
+            (f'{prefix}/relu', nn.ReLU(inplace=True)),
+        ]))
+
+    @staticmethod
+    def chain(blocks: Sequence['ConvBNReLU']) -> nn.Sequential:
+        return nn.Sequential(OrderedDict(
+            item for blk in blocks for item in blk.named_children()))
+
+
+class GroupNormConv(nn.Sequential):
+    """conv 3x3 (bias) -> GroupNorm(32) -> ReLU (depth_predictor.py:41-44);
+    children 0, 1, 2 as in the reference's depth head."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 groups: int = 32):
+        super().__init__(
+            Conv2d(in_ch, out_ch, kernel, padding=(kernel - 1) // 2),
+            GroupNorm(groups, out_ch, eps=1e-5),
+            nn.ReLU(inplace=True))
+
+
+class MLN(nn.Module):
+    """Meta LayerNorm (misc.py:153-190): gamma and beta predicted from a
+    conditioning code."""
+
+    def __init__(self, c_dim: int, f_dim: int = 256, use_ln: bool = True):
+        super().__init__()
+        self.use_ln = use_ln
+        self.reduce = nn.Sequential(Linear(c_dim, f_dim), nn.ReLU())
+        self.gamma = Linear(f_dim, f_dim)
+        self.beta = Linear(f_dim, f_dim)
+
+    def forward(self, x, c):
+        if self.use_ln:
+            x = F.layer_norm(x, (x.shape[-1],), eps=1e-5)
+        h = self.reduce(c.to(x.dtype))
+        return self.gamma(h) * x + self.beta(h)
+
+
+class SELayerLinear(nn.Module):
+    """Linear squeeze-excite gate (misc.py:138-150)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.reduce = Linear(channels, channels)
+        self.expand = Linear(channels, channels)
+
+    def forward(self, x, x_se):
+        h = self.expand(F.relu(self.reduce(x_se)))
+        return x * torch.sigmoid(h)
+
+
+def MLP(features: Sequence[int], in_dim: int) -> nn.Sequential:
+    """Linear stack with ReLU between layers; children 0, 2, ... are the
+    linears, as in the reference's ``query_embedding`` (farhead.py:268-272)."""
+    layers = []
+    for i, f in enumerate(features):
+        layers.append(Linear(in_dim, f))
+        if i < len(features) - 1:
+            layers.append(nn.ReLU())
+        in_dim = f
+    return nn.Sequential(*layers)
+
+
+class FFN(nn.Module):
+    """Transformer FFN with residual (mmcv FFN); ``layers.0.0`` and
+    ``layers.1`` are the two linears, as in the reference. Dropout is the
+    identity at inference."""
+
+    def __init__(self, embed_dims: int = 256, ffn_dims: int = 2048):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(Linear(embed_dims, ffn_dims), nn.ReLU()),
+            Linear(ffn_dims, embed_dims))
+
+    def forward(self, x):
+        return x + self.layers(x)
