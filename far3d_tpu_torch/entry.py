@@ -1,9 +1,12 @@
-"""Entry point: one streaming Far3D frame plus decode (the PyTorch twin of
-``__graft_entry__.py:entry``).
+"""Entry points: one streaming Far3D frame plus decode (the PyTorch twin of
+``__graft_entry__.py:entry``), and one training step.
 
     step, (state,) = entry()                # full Far3DConfig() on 'cuda'
     dets, state = step(state)               # first frame of a stream
     dets, state = step(state, prev_exists=torch.ones(1, device='cuda'))
+
+    step, (train_state, tstate) = train_entry()
+    train_state, tstate, metrics = step(train_state, tstate)
 
 The model carries seeded random weights in the reference checkpoint's layout
 (``utils.convert.random_reference_state_dict``). It runs on the card unless
@@ -20,8 +23,9 @@ import torch
 from .config import Far3DConfig
 from .models.detector import Far3D, decode_detections
 from .models.farhead import init_state
+from .train.step import create_train_state, train_step
 from .utils.convert import random_reference_state_dict
-from .utils.synthetic import inference_inputs
+from .utils.synthetic import inference_inputs, synthetic_batch
 
 
 def resolve_device(device=None) -> torch.device:
@@ -73,3 +77,24 @@ def entry(cfg: Optional[Far3DConfig] = None, device=None, seed: int = 0):
 
     step.model = model
     return step, (init_state(1, cfg.head, device),)
+
+
+def train_entry(cfg: Optional[Far3DConfig] = None, device=None, seed: int = 0):
+    """-> (step, (train_state, temporal_state)): ``step(train_state,
+    temporal_state)`` takes one training step (AdamW, DN, grid mask, dropout,
+    GT depth, all losses) on the seeded synthetic batch ``synthetic_batch(cfg,
+    1, seed)`` and returns (train_state, next temporal state, metrics).
+    Grid-mask and DN draws come from a CPU generator, dropout from one on the
+    device, both seeded with `seed`."""
+    cfg = Far3DConfig() if cfg is None else cfg
+    device = resolve_device(device)
+    model = build_model(cfg, device, seed)
+    batch = {k: v.to(device) for k, v in synthetic_batch(cfg, 1, seed).items()}
+    noise_gen = torch.Generator().manual_seed(seed)
+    dropout_gen = torch.Generator(device=device).manual_seed(seed)
+
+    def step(train_state, tstate):
+        return train_step(cfg, train_state, tstate, batch, noise_gen,
+                          dropout_gen)
+
+    return step, create_train_state(cfg, model, batch=1)

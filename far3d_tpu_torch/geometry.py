@@ -1,8 +1,8 @@
 """Kernel-free geometry and codec helpers (plain torch).
 
-Counterpart of ``far3d_tpu/geometry.py``, limited to what the inference path
-uses: LID depth binning, the box decode, the sine / NeRF positional encodings,
-and the SE3 and projection helpers.
+Counterpart of ``far3d_tpu/geometry.py``, limited to what the inference and
+training paths use: LID depth binning, the box codec, the sine / NeRF
+positional encodings, and the SE3 and projection helpers.
 """
 
 from __future__ import annotations
@@ -30,6 +30,16 @@ def lid_bin_to_depth(indices: torch.Tensor, depth_min: float,
     bs = lid_bin_size(depth_min, depth_max, num_bins)
     i = indices.float()
     return depth_min + bs / 8.0 * ((i / 0.5 + 1.0).square() - 1.0)
+
+
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """Metric (cx,cy,cz,w,l,h,yaw[,vx,vy]) -> normalized code
+    (x,y,z, log w,l,h, sin,cos[,vx,vy]) (util.py:4-23)."""
+    rot = bboxes[..., 6:7]
+    parts = [bboxes[..., 0:3], bboxes[..., 3:6].log(), rot.sin(), rot.cos()]
+    if bboxes.shape[-1] > 7:
+        parts.append(bboxes[..., 7:9])
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(code: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,13 @@
 Op order per layer: self_attn -> norm -> cross_attn -> norm -> ffn -> norm,
 with the temporal memory concatenated into the self-attention keys and values
 (:377-396). The cross attention's sampling is ``ops.msda``: the plain version
-on the CPU, the hand-written CUDA kernel on the card. Dropout is the identity
-at inference and is not modelled.
+on the CPU, the hand-written CUDA kernels on the card (forward, and in the
+backward the value and attention gradients).
+
+In training (``train=True``) the dropouts of the JAX package apply, drawn
+from an explicit ``torch.Generator`` on the activations' device: after the
+cross attention's output projection (decoder.py:110), on the self-attention
+probabilities and its output (:141-147), and in the FFN.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from torch import nn
 from ..config import DecoderConfig, DeformableAggConfig
 from ..geometry import denormalize_from_pc_range, project_to_image
 from ..ops.msda import MSDA
-from .layers import FFN, Linear
+from .layers import FFN, Linear, dropout
 
 
 class DeformableAggregation(nn.Module):
@@ -52,7 +57,9 @@ class DeformableAggregation(nn.Module):
                 query_pos: torch.Tensor,                # (B, Q, C)
                 feat_flatten: torch.Tensor,             # (B*N, L_total, C)
                 reference_points: torch.Tensor,         # (B, Q, 3) in [0, 1]
-                lidar2img: torch.Tensor) -> torch.Tensor:  # (B, N, 4, 4)
+                lidar2img: torch.Tensor,                # (B, N, 4, 4)
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.cfg
         b, q, ch = instance_feature.shape
         n, g, nl, p = c.num_cams, c.num_groups, c.num_levels, c.num_pts
@@ -81,22 +88,34 @@ class DeformableAggregation(nn.Module):
 
         feats = self.sampler(feat_flatten, loc, w)               # (B*N, Q, C)
         feats = feats.reshape(b, n, q, ch).sum(dim=1)
-        return self.output_proj(feats) + instance_feature
+        out = dropout(self.output_proj(feats), c.dropout, train, generator)
+        return out + instance_feature
 
 
 class SelfAttention(nn.Module):
     """Multi-head attention with additive positional embeddings; the keys and
     values include the temporal memory (detr3d_transformer.py:377-396).
-    ``attn`` holds the reference's packed ``in_proj`` and ``out_proj``."""
+    ``attn`` holds the reference's packed ``in_proj`` and ``out_proj``.
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    In training, flax's MultiHeadDotProductAttention drops attention
+    probabilities with one (Q, K) mask shared by the batch and the heads
+    (broadcast_dropout=True), and a residual dropout follows. SDPA takes no
+    generator, so with a nonzero attention-dropout rate the training path
+    computes this attention as matmul, masked softmax, dropout and matmul;
+    otherwise, and always at inference, it is SDPA."""
+
+    def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1,
+                 attn_dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
+        self.attn_dropout = attn_dropout
         self.attn = nn.MultiheadAttention(embed_dims, num_heads,
                                           batch_first=True)
 
     def forward(self, query, query_pos, key, key_pos,
-                attn_mask: Optional[torch.Tensor] = None):
+                attn_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """attn_mask: (B, Q, K) or (Q, K) bool, True = blocked."""
         b, nq, c = query.shape
         nk = key.shape[1]
@@ -116,9 +135,23 @@ class SelfAttention(nn.Module):
             allowed = ~attn_mask
             allowed = allowed[None, None] if allowed.dim() == 2 else \
                 allowed[:, None]
-        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed)
-        out = out.transpose(1, 2).reshape(b, nq, c)
-        return query + self.attn.out_proj(out)
+        if train and self.attn_dropout > 0.0:
+            logits = (qh @ kh.transpose(-1, -2)) / hd ** 0.5
+            if allowed is not None:
+                logits = logits.masked_fill(~allowed,
+                                            torch.finfo(logits.dtype).min)
+            probs = logits.softmax(dim=-1)
+            if generator is None:
+                raise ValueError('attention dropout in training needs a '
+                                 'torch.Generator')
+            keep_prob = 1.0 - self.attn_dropout
+            keep = torch.rand((nq, nk), generator=generator,
+                              device=probs.device) < keep_prob
+            out = (probs * (keep.to(probs.dtype) / keep_prob)) @ vh
+        else:
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed)
+        out = self.attn.out_proj(out.transpose(1, 2).reshape(b, nq, c))
+        return query + dropout(out, self.dropout, train, generator)
 
 
 class DecoderLayer(nn.Module):
@@ -129,22 +162,27 @@ class DecoderLayer(nn.Module):
                  spatial_shapes, pad_hw, pc_range):
         super().__init__()
         self.attentions = nn.ModuleList([
-            SelfAttention(cfg.embed_dims, cfg.num_heads),
+            SelfAttention(cfg.embed_dims, cfg.num_heads, cfg.dropout,
+                          cfg.attn_dropout),
             DeformableAggregation(deform, spatial_shapes, pad_hw, pc_range)])
         self.norms = nn.ModuleList(
             [nn.LayerNorm(cfg.embed_dims, eps=1e-5) for _ in range(3)])
-        self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dims)])
+        self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dims,
+                                       cfg.dropout)])
 
     def forward(self, query, query_pos, feat_flatten, temp_memory, temp_pos,
-                reference_points, lidar2img, attn_mask):
+                reference_points, lidar2img, attn_mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         key = torch.cat([query, temp_memory], dim=1)
         key_pos = torch.cat([query_pos, temp_pos], dim=1)
-        query = self.attentions[0](query, query_pos, key, key_pos, attn_mask)
+        query = self.attentions[0](query, query_pos, key, key_pos, attn_mask,
+                                   train, generator)
         query = self.norms[0](query)
         query = self.attentions[1](query, query_pos, feat_flatten,
-                                   reference_points, lidar2img)
+                                   reference_points, lidar2img, train,
+                                   generator)
         query = self.norms[1](query)
-        return self.norms[2](self.ffns[0](query))
+        return self.norms[2](self.ffns[0](query, train, generator))
 
 
 class Decoder(nn.Module):
@@ -159,10 +197,12 @@ class Decoder(nn.Module):
             for _ in range(cfg.num_layers)])
 
     def forward(self, query, query_pos, feat_flatten, temp_memory, temp_pos,
-                reference_points, lidar2img, attn_mask):
+                reference_points, lidar2img, attn_mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         intermediates = []
         for layer in self.layers:
             query = layer(query, query_pos, feat_flatten, temp_memory,
-                          temp_pos, reference_points, lidar2img, attn_mask)
+                          temp_pos, reference_points, lidar2img, attn_mask,
+                          train, generator)
             intermediates.append(query)
         return torch.stack(intermediates)

@@ -9,7 +9,7 @@ Child names are the reference checkpoint's top-level prefixes.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,17 +47,30 @@ class Far3D(nn.Module):
                 prev_exists: torch.Tensor,    # (B,)
                 timestamp: torch.Tensor,      # (B,)
                 ego_pose: torch.Tensor,       # (B, 4, 4)
-                ego_pose_inv: torch.Tensor    # (B, 4, 4)
+                ego_pose_inv: torch.Tensor,   # (B, 4, 4)
+                gt_depth_bins: Optional[torch.Tensor] = None,  # (B, N, H8*W8)
+                dn_ref_points: Optional[torch.Tensor] = None,  # (B, pad, 3)
+                dn_valid: Optional[torch.Tensor] = None,       # (B, pad)
+                use_gt_depth: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
         """The images' dtype sets the dtype of the image side (backbone, FPN,
-        2D head and the sampled feature pyramid); the query side is f32."""
+        2D head and the sampled feature pyramid); the query side is f32.
+
+        `train` (detector.py:35-98) switches the YOLOX towers' BN to batch
+        statistics and turns on the decoder's dropouts, drawn from
+        `generator` (on the activations' device); `gt_depth_bins` with
+        `use_gt_depth` places the 2D proposals at their GT depth; `dn_*` are
+        the denoising queries of ``train/dn.py``. The raw 2D head maps come
+        back as ``outs2d`` for the 2D loss."""
         cfg = self.cfg
         b, n, h, w, _ = images.shape
         # NHWC -> NCHW shape; on the card this is channels_last in memory
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(x))      # 4 x (BN, C, Hl, Wl)
 
-        outs2d = self.img_roi_head(feats)
+        outs2d = self.img_roi_head(feats, train)
         proposals = select_proposals(outs2d, b, n, cfg.strides,
                                      cfg.roi2d.num_proposals_2d,
                                      cfg.roi2d.threshold_score)
@@ -71,7 +84,10 @@ class Far3D(nn.Module):
         head_out = self.pts_bbox_head(
             feat_flatten, lidar2img, intrinsics, extrinsics, state,
             prev_exists, timestamp, ego_pose, ego_pose_inv,
-            proposals=proposals, depth_probs=depth_probs)
+            proposals=proposals, depth_probs=depth_probs,
+            gt_depth_bins=gt_depth_bins, dn_ref_points=dn_ref_points,
+            dn_valid=dn_valid, use_gt_depth=use_gt_depth, train=train,
+            generator=generator)
         head_out['outs2d'] = outs2d
         head_out['proposals'] = proposals
         return head_out

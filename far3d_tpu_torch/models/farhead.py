@@ -4,9 +4,15 @@ models/dense_heads/farhead.py).
 
 The memory queue is an explicit ``TemporalState`` passed in and returned each
 frame; a scene change is the multiplicative ``prev_exists`` mask. 2D proposals
-come as a static top-K with a validity mask. The denoising queries belong to
-training and are not part of this inference port. The cls and reg branches
-are one instance shared by all decoder layers, as in the reference.
+come as a static top-K with a validity mask. In training the denoising (DN)
+queries, built by ``train/dn.py``, come first in the query set, behind a
+block-diagonal attention mask, and their predictions are returned apart from
+the real queries'. The cls and reg branches are one instance shared by all
+decoder layers, as in the reference.
+
+Gradients stop where the JAX package stops them: at the frozen pseudo
+reference points, the lifted 2D proposals (reference points and context)
+and the memory written for the next frame.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ def pre_update_memory_fn(state: TemporalState, prev_exists, timestamp,
     velo = state.velo * x
     if num_propagated > 0:
         fresh = 1.0 - x
-        pseudo = denormalize_from_pc_range(pseudo_ref, pc_range)
+        pseudo = denormalize_from_pc_range(pseudo_ref.detach(), pc_range)
         ref = torch.cat([ref[:, :num_propagated] + fresh * pseudo[None],
                          ref[:, num_propagated:]], dim=1)
         eye = torch.eye(4, dtype=ego.dtype, device=ego.device)
@@ -86,7 +92,7 @@ def post_update_memory_fn(state: TemporalState, cls_scores, bbox_preds,
 
     def take(a):
         idx = top_idx.reshape(b, k, *([1] * (a.dim() - 2)))
-        return torch.gather(a, 1, idx.expand(b, k, *a.shape[2:]))
+        return torch.gather(a.detach(), 1, idx.expand(b, k, *a.shape[2:]))
 
     rec_ref = take(bbox_preds[..., :3])
     rec_velo = take(bbox_preds[..., -2:])
@@ -115,14 +121,19 @@ def build_query2d_proposals(proposals: Dict[str, torch.Tensor],
                             depth_cfg: DepthNetConfig,
                             md_cfg: MultiDepthConfig,
                             pc_range,
-                            threshold: float):
+                            threshold: float,
+                            gt_depth_bins: Optional[torch.Tensor] = None,
+                            use_gt_depth: bool = False):
     """Lift the 2D proposals to 3D queries (farhead.py:710-827).
 
     proposals: output of heads2d.select_proposals; depth_probs
     (B, N, H8*W8, D+1); feat_flatten (B, N, L_total, C), the aligned features;
     lidar2img (B, N, 4, 4). Returns (ref_points (B, K*S, 3) in
     pc-range-normalized coordinates, context (B, K*S, C+1), valid (B, K*S)),
-    with S = multi-depth slots, interleaved per proposal.
+    with S depth slots interleaved per proposal, all without gradient. With
+    `use_gt_depth` and gt_depth_bins (B, N, H8*W8) given, each proposal gets
+    one slot at its GT depth bin (train time, farhead.py:585-592); otherwise S
+    = multi-depth top-k slots of the predicted distribution.
     """
     cam_idx = proposals['cam_idx']
     b, k = cam_idx.shape
@@ -144,14 +155,21 @@ def build_query2d_proposals(proposals: Dict[str, torch.Tensor],
     log_odds = (torch.log(scores / (1 - scores))
                 - math.log(threshold / (1 - threshold)))
 
-    vals, idxs = torch.topk(probs, topk, dim=-1)                # (B, K, S)
-    bins = idxs.float()
-    dweights = vals / vals[..., :1].clamp(min=1e-9)             # rescale (:778)
-    bs = 2.0 * (depth_cfg.depth_max - depth_cfg.depth_min) / (
-        depth_cfg.num_depth_bins * (1 + depth_cfg.num_depth_bins))
-    range_min_bin = int(-0.5 + 0.5 * (1.0 + 8.0 * (
-        md_cfg.range_min - depth_cfg.depth_min) / bs) ** 0.5)
-    extra_valid = (idxs[..., :1] >= range_min_bin).expand(b, k, topk - 1)
+    if use_gt_depth and gt_depth_bins is not None:
+        bins = gt_depth_bins[bidx, cam_idx, flat8].float()[..., None]
+        dweights = torch.ones_like(bins)
+        extra_valid = torch.zeros(b, k, topk - 1, dtype=torch.bool,
+                                  device=bins.device)
+    else:
+        vals, idxs = torch.topk(probs, topk, dim=-1)            # (B, K, S)
+        bins = idxs.float()
+        dweights = vals / vals[..., :1].clamp(min=1e-9)         # rescale (:778)
+        bs = 2.0 * (depth_cfg.depth_max - depth_cfg.depth_min) / (
+            depth_cfg.num_depth_bins * (1 + depth_cfg.num_depth_bins))
+        range_min_bin = int(-0.5 + 0.5 * (1.0 + 8.0 * (
+            md_cfg.range_min - depth_cfg.depth_min) / bs) ** 0.5)
+        extra_valid = (idxs[..., :1] >= range_min_bin).expand(b, k, topk - 1)
+    n_slots = bins.shape[-1]
 
     depth = lid_bin_to_depth(bins, depth_cfg.depth_min, depth_cfg.depth_max,
                              depth_cfg.num_depth_bins)          # (B, K, S)
@@ -165,33 +183,47 @@ def build_query2d_proposals(proposals: Dict[str, torch.Tensor],
     # context = aligned FPN feature at the proposal plus the depth-weighted
     # score log-odds channel (farhead.py:773-786)
     ctx = feat_flatten[bidx, cam_idx, proposals['flat_idx']]   # (B, K, C)
-    ctx = ctx[:, :, None, :].expand(b, k, topk, ctx.shape[-1])
+    ctx = ctx[:, :, None, :].expand(b, k, n_slots, ctx.shape[-1])
     lo = (log_odds[..., None] * dweights).to(ctx.dtype)        # (B, K, S)
     ctx = torch.cat([ctx, lo[..., None]], dim=-1)
 
     slot_valid = torch.cat([valid[..., None], valid[..., None] & extra_valid],
-                           dim=-1)
-    return (ref.reshape(b, k * topk, 3), ctx.reshape(b, k * topk, -1),
-            slot_valid.reshape(b, k * topk))
+                           dim=-1)[..., :n_slots]
+    return (ref.reshape(b, k * n_slots, 3).detach(),
+            ctx.reshape(b, k * n_slots, -1).detach(),
+            slot_valid.reshape(b, k * n_slots))
 
 
-def build_attn_mask(num_query: int, k2d: int, num_prop: int, mem_tail: int,
-                    proposal_valid: torch.Tensor) -> torch.Tensor:
-    """Invalid-proposal keys blocked for every query (farhead.py:623-631);
-    True = blocked. Query layout [learned, proposals, propagated]; keys add
-    the memory tail. The denoising blocks of the JAX version
-    (farhead.py:226-254) are training-only and absent here."""
+def build_attn_mask(pad_size: int, group_size: int, num_query: int, k2d: int,
+                    num_prop: int, mem_tail: int,
+                    proposal_valid: torch.Tensor,
+                    dn_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-diagonal DN mask plus blocked invalid keys (farhead.py:226-254);
+    True = blocked. Query layout [DN (pad_size), learned, proposals (k2d),
+    propagated]; keys add the memory tail. A DN key is visible only to
+    queries of its own DN group; invalid DN slots and invalid proposals are
+    blocked for every query. Returns (B, Q, K)."""
     b = proposal_valid.shape[0]
-    nq = num_query + k2d + num_prop
+    dev = proposal_valid.device
+    nq = pad_size + num_query + k2d + num_prop
     nk = nq + mem_tail
-    blocked = torch.zeros(b, nk, dtype=torch.bool, device=proposal_valid.device)
-    blocked[:, num_query:num_query + k2d] = ~proposal_valid
-    return blocked[:, None, :].expand(b, nq, nk)
+    qi = torch.arange(nq, device=dev)
+    ki = torch.arange(nk, device=dev)
+    gs = max(group_size, 1)
+    q_group = torch.where(qi < pad_size, qi // gs, torch.full_like(qi, -1))
+    k_group = torch.where(ki < pad_size, ki // gs, torch.full_like(ki, -2))
+    blocked = (k_group[None, :] >= 0) & (q_group[:, None] != k_group[None, :])
+    keys = torch.zeros(b, nk, dtype=torch.bool, device=dev)
+    if dn_valid is not None and pad_size > 0:
+        keys[:, :pad_size] = ~dn_valid
+    p0 = pad_size + num_query
+    keys[:, p0:p0 + k2d] = ~proposal_valid
+    return blocked[None] | keys[:, None, :]
 
 
 class FarHead(nn.Module):
-    """Inference FarHead (farhead.py:257-451 without the DN inputs).
-    Child names are the reference checkpoint's (``pts_bbox_head.*``)."""
+    """FarHead (farhead.py:257-451). Child names are the reference
+    checkpoint's (``pts_bbox_head.*``)."""
 
     def __init__(self, head: HeadConfig, decoder: DecoderConfig,
                  deform: DeformableAggConfig, depthnet: DepthNetConfig,
@@ -236,8 +268,18 @@ class FarHead(nn.Module):
                 ego_pose: torch.Tensor,          # (B, 4, 4)
                 ego_pose_inv: torch.Tensor,      # (B, 4, 4)
                 proposals: Optional[Dict[str, torch.Tensor]] = None,
-                depth_probs: Optional[torch.Tensor] = None
+                depth_probs: Optional[torch.Tensor] = None,
+                gt_depth_bins: Optional[torch.Tensor] = None,
+                dn_ref_points: Optional[torch.Tensor] = None,   # (B, pad, 3)
+                dn_valid: Optional[torch.Tensor] = None,        # (B, pad)
+                use_gt_depth: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
+        """Returns the real queries' ``all_cls_scores`` (L, B, Q, ncls),
+        ``all_bbox_preds`` (L, B, Q, code), ``query_valid`` and the next
+        ``state``; with DN queries also ``dn_cls_scores`` and
+        ``dn_bbox_preds`` (L, B, pad, ...), else None for both."""
         c = self.head
         bn, l_total, ch = feat_flatten.shape
         b = lidar2img.shape[0]
@@ -256,16 +298,21 @@ class FarHead(nn.Module):
         feat_flatten = self.spatial_alignment(
             feat_flatten, mln_in.reshape(bn, 1, 14).to(feat_flatten.dtype))
 
-        # --- query set: [learned, 2D proposals, propagated] ---------------
+        # --- query set: [DN, learned, 2D proposals, propagated] -----------
+        pad_size = 0 if dn_ref_points is None else dn_ref_points.shape[1]
         reference_points = self.reference_points.weight[None].expand(
             b, c.num_query, 3)
+        if pad_size:
+            reference_points = torch.cat(
+                [dn_ref_points.to(reference_points.dtype), reference_points],
+                dim=1)
         k2d, ctx2d = 0, None
         if c.add_query_from_2d and proposals is not None:
             ref2d, ctx2d, prop_valid = build_query2d_proposals(
                 proposals, depth_probs,
                 feat_flatten.reshape(b, n, l_total, ch), lidar2img,
                 self.pad_hw, self.depthnet, c.multi_depth, self.pc_range,
-                self.threshold_2d)
+                self.threshold_2d, gt_depth_bins, use_gt_depth)
             k2d = ref2d.shape[1]
             reference_points = torch.cat(
                 [reference_points, ref2d.to(reference_points.dtype)], dim=1)
@@ -277,7 +324,7 @@ class FarHead(nn.Module):
         tgt = torch.zeros_like(query_pos)
         if ctx2d is not None:
             ctx_emb = self.context_embed(ctx2d.to(tgt.dtype))
-            tgt = torch.cat([tgt[:, :c.num_query], ctx_emb], dim=1)
+            tgt = torch.cat([tgt[:, :pad_size + c.num_query], ctx_emb], dim=1)
 
         # --- temporal alignment (farhead.py:284-313) ------------------------
         temp_ref_norm = normalize_to_pc_range(state.ref_points, self.pc_range)
@@ -314,12 +361,13 @@ class FarHead(nn.Module):
             temp_memory = temp_memory[:, np_:]
             temp_pos = temp_pos[:, np_:]
 
-        attn_mask = build_attn_mask(c.num_query, k2d, np_,
-                                    temp_memory.shape[1], prop_valid)
+        attn_mask = build_attn_mask(
+            pad_size, c.dn_max_gt * c.num_smp_per_gt, c.num_query, k2d, np_,
+            temp_memory.shape[1], prop_valid, dn_valid)
 
         outs_dec = self.transformer['decoder'](
             tgt, query_pos, feat_flatten, temp_memory, temp_pos,
-            reference_points, lidar2img, attn_mask)
+            reference_points, lidar2img, attn_mask, train, generator)
         outs_dec = torch.nan_to_num(outs_dec.float())
 
         all_cls = self.cls_branches[0](outs_dec)              # (Lyr, B, Q, ncls)
@@ -329,13 +377,17 @@ class FarHead(nn.Module):
         xyz = denormalize_from_pc_range(xyz, self.pc_range)
         all_bbox = torch.cat([xyz, tmp[..., 3:]], dim=-1)
 
+        # --- memory update and outputs, the DN part excluded (:434-450) -----
         query_valid = torch.cat([
             torch.ones(b, c.num_query, dtype=torch.bool, device=prop_valid.device),
             prop_valid,
             torch.ones(b, np_, dtype=torch.bool, device=prop_valid.device)],
             dim=1)
+        real_cls, real_bbox = all_cls[:, :, pad_size:], all_bbox[:, :, pad_size:]
         new_state = post_update_memory_fn(
-            state, all_cls[-1], all_bbox[-1], outs_dec[-1], query_valid,
-            timestamp, ego_pose, c.topk_proposals, c.memory_len)
-        return {'all_cls_scores': all_cls, 'all_bbox_preds': all_bbox,
+            state, real_cls[-1], real_bbox[-1], outs_dec[-1][:, pad_size:],
+            query_valid, timestamp, ego_pose, c.topk_proposals, c.memory_len)
+        return {'all_cls_scores': real_cls, 'all_bbox_preds': real_bbox,
+                'dn_cls_scores': all_cls[:, :, :pad_size] if pad_size else None,
+                'dn_bbox_preds': all_bbox[:, :, :pad_size] if pad_size else None,
                 'query_valid': query_valid, 'state': new_state}

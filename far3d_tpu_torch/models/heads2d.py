@@ -15,20 +15,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DepthNetConfig, Yolox2DConfig
-from .layers import Conv2d, FrozenBatchNorm, GroupNormConv
+from .layers import BatchNorm, Conv2d, GroupNormConv
 
 
 class ConvBNSwish(nn.Module):
-    """conv 3x3 (no bias) -> BN (eval, eps 1e-3) -> SiLU, the YOLOX tower
-    block (yolox_head.py:197-219)."""
+    """conv 3x3 (no bias) -> BN (eps 1e-3, momentum 0.97) -> SiLU, the YOLOX
+    tower block (yolox_head.py:197-219). The BN is trainable: batch
+    statistics in training, running statistics at inference."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
-        self.bn = FrozenBatchNorm(out_ch, eps=1e-3)
+        self.bn = BatchNorm(out_ch, eps=1e-3, momentum=0.97)
 
-    def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+    def forward(self, x, train: bool = False):
+        return F.silu(self.bn(self.conv(x), train))
 
 
 class DepthPredictor(nn.Module):
@@ -82,14 +83,19 @@ class YoloxHead2D(nn.Module):
         self.multi_level_conv_centers2d = preds(2)
         self.depthnet = DepthPredictor(cfg.in_channels, depth_cfg)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False
+                ) -> Dict[str, List[torch.Tensor]]:
         """feats: per-level (BN, C, H, W). Returns per-level NHWC maps and the
-        stride-8 depth logits (BN, H8, W8, D+1)."""
+        stride-8 depth logits (BN, H8, W8, D+1). `train` switches the towers'
+        BN to batch statistics (and updates the running ones)."""
         out = {'cls_scores': [], 'bbox_preds': [], 'objectnesses': [],
                'centers2d_offsets': []}
         for li, x in enumerate(feats):
-            cf = self.multi_level_cls_convs[li](x)
-            rf = self.multi_level_reg_convs[li](x)
+            cf = rf = x
+            for blk in self.multi_level_cls_convs[li]:
+                cf = blk(cf, train)
+            for blk in self.multi_level_reg_convs[li]:
+                rf = blk(rf, train)
             out['cls_scores'].append(_nhwc(self.multi_level_conv_cls[li](cf)))
             out['bbox_preds'].append(_nhwc(self.multi_level_conv_reg[li](rf)))
             out['objectnesses'].append(_nhwc(self.multi_level_conv_obj[li](rf)))

@@ -12,7 +12,7 @@ Parameter names follow the reference checkpoint's keys, so a reference
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +62,52 @@ class FrozenBatchNorm(nn.Module):
         shift = self.bias - self.running_mean * inv
         shape = (1, -1, 1, 1)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+class BatchNorm(FrozenBatchNorm):
+    """BatchNorm with flax.linen.BatchNorm's semantics, for the YOLOX towers
+    (heads2d.py:34-35: momentum 0.97, eps 1e-3). At inference it is the
+    frozen affine of ``FrozenBatchNorm``. In training it normalizes with the
+    batch's statistics over (N, H, W), reduced in f32 with the biased
+    variance, computes in f32 and returns the input's dtype, and updates the
+    running statistics in place: new = momentum * old + (1 - momentum) *
+    batch, with the biased batch variance (``nn.BatchNorm2d`` uses the
+    unbiased one)."""
+
+    def __init__(self, features: int, eps: float = 1e-3,
+                 momentum: float = 0.97):
+        super().__init__(features, eps)
+        self.momentum = momentum
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                (1 - self.momentum) * mean.detach())
+            self.running_var.mul_(self.momentum).add_(
+                (1 - self.momentum) * var.detach())
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * (torch.rsqrt(var + self.eps)
+                                       * self.weight).view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax.linen.Dropout: identity unless training with rate > 0; then each
+    element is kept with probability 1 - rate, drawn from `generator` (which
+    must lie on x's device), and scaled by 1 / (1 - rate)."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in training needs a torch.Generator')
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class ConvBNReLU(nn.Sequential):
@@ -145,14 +191,19 @@ def MLP(features: Sequence[int], in_dim: int) -> nn.Sequential:
 
 class FFN(nn.Module):
     """Transformer FFN with residual (mmcv FFN); ``layers.0.0`` and
-    ``layers.1`` are the two linears, as in the reference. Dropout is the
-    identity at inference."""
+    ``layers.1`` are the two linears, as in the reference. In training a
+    dropout follows the ReLU and the second linear (layers.py:139-141)."""
 
-    def __init__(self, embed_dims: int = 256, ffn_dims: int = 2048):
+    def __init__(self, embed_dims: int = 256, ffn_dims: int = 2048,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.layers = nn.Sequential(
             nn.Sequential(Linear(embed_dims, ffn_dims), nn.ReLU()),
             Linear(ffn_dims, embed_dims))
 
-    def forward(self, x):
-        return x + self.layers(x)
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        h = dropout(self.layers[0](x), self.dropout, train, generator)
+        h = dropout(self.layers[1](h), self.dropout, train, generator)
+        return x + h

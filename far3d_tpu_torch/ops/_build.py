@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
@@ -50,27 +50,46 @@ def _nvcc() -> str:
                        'the CUDA kernels cannot be built')
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _libs:
-        return _libs[name]
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f'{name}-{digest}.so'
-    if not lib_path.exists():
+def _lib_path(name: str) -> pathlib.Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    the flags."""
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f'{name}-{digest}.so'
+
+
+def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name: one
+    ``nvcc`` per source that needs a build, all started together, then each
+    waited for. Raises after all have ended if any build failed."""
+    builds, failed = [], []
+    for name in names:
+        src, lib_path = CSRC / f'{name}.cu', _lib_path(name)
+        if name in _libs or lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        builds.append((name, src, tmp, lib_path, proc, time.perf_counter()))
+    for name, src, tmp, lib_path, proc, t0 in builds:
+        build_logs[name] = proc.communicate()[0]
         build_seconds[name] = time.perf_counter() - t0
-        build_logs[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f'nvcc failed for {src}:\n{build_logs[name]}')
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    _libs[name] = lib
-    return lib
+            failed.append(f'nvcc failed for {src}:\n{build_logs[name]}')
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    for name in names:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return [_libs[name] for name in names]
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return load_kernel_libraries(name)[0]

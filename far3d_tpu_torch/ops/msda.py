@@ -13,9 +13,11 @@ Counterpart of ``far3d_tpu/ops/msda.py``, with the same contract:
 Bilinear convention (mmcv im2col): x = u * W - 0.5, y = v * H - 0.5; each
 corner outside the feature map contributes zero on its own.
 
-``msda_reference`` is the plain version. ``msda`` routes by device: a CPU
-tensor takes the plain version, a CUDA tensor launches the hand-written kernel
-(``ops/msda_cuda.py``) or raises. Nothing sends a CUDA tensor to the plain
+``msda_reference`` is the plain version, differentiable by autograd, and
+``msda_backward_reference`` its plain backward. ``msda`` routes by device: a
+CPU tensor takes the plain version, a CUDA tensor launches the hand-written
+kernels (``ops/msda_cuda.py``: the forward, and in the backward the value and
+attention gradients) or raises. Nothing sends a CUDA tensor to the plain
 version.
 """
 
@@ -80,6 +82,23 @@ def msda_reference(value: torch.Tensor,
             out = out + torch.einsum('bqpgc,bqgp->bqgc', rows, wc)
         offset += h * w
     return out.reshape(b, q, c).to(value.dtype)
+
+
+def msda_backward_reference(value: torch.Tensor,
+                            spatial_shapes: Sequence[Tuple[int, int]],
+                            loc: torch.Tensor,
+                            weights: torch.Tensor,
+                            grad_out: torch.Tensor):
+    """Plain backward: ``torch.autograd.grad`` through ``msda_reference`` in
+    f32 -> (d_value in the value's dtype, d_loc f32, d_weights f32). The
+    value gradient is accumulated in f32 and cast once, as the JAX package's
+    backward does (msda_pallas.py:721-722)."""
+    with torch.enable_grad():
+        v, l, w = [t.detach().float().requires_grad_()
+                   for t in (value, loc, weights)]
+        out = msda_reference(v, spatial_shapes, l, w)
+        d_v, d_l, d_w = torch.autograd.grad(out, (v, l, w), grad_out.float())
+    return d_v.to(value.dtype), d_l, d_w
 
 
 def msda(value: torch.Tensor,

@@ -15,7 +15,7 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'far3d_tpu')
 
 def test_import_loads_no_jax():
     code = ('import sys, far3d_tpu_torch, far3d_tpu_torch.entry, '
-            'far3d_tpu_torch.ops.msda_cuda; '
+            'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.train.step; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -60,3 +60,22 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     w = torch.zeros(1, 2, 2, 1, 3)
     with pytest.raises(ValueError, match='CUDA'):
         msda_fwd(v, [(2, 2)], loc, w)
+
+
+def test_cuda_backward_wrappers_refuse_cpu_tensors():
+    from far3d_tpu_torch.ops.msda_cuda import msda_dattn, msda_dval
+    v = torch.zeros(1, 4, 8)
+    loc = torch.zeros(1, 2, 3, 2)
+    w = torch.zeros(1, 2, 2, 1, 3)
+    g = torch.zeros(1, 2, 8)
+    for fn in (msda_dval, msda_dattn):
+        with pytest.raises(ValueError, match='CUDA'):
+            fn(v, [(2, 2)], loc, w, g)
+
+
+def test_train_entry_without_a_card_raises(monkeypatch):
+    from far3d_tpu_torch.config import tiny_test_config
+    from far3d_tpu_torch.entry import train_entry
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_entry(tiny_test_config())
