@@ -5,9 +5,8 @@
 
 Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the MSDA forward and backward kernels from
-     far3d_tpu_torch/csrc/msda_fwd.cu and msda_bwd.cu, one nvcc each, both
-     started together;
+  2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
+     msda_bwd.cu, osa_fused.cu), one nvcc each, all started together;
   3. kernel vs plain version on edge cases (f32), and the tiny model on the
      card against the same model on the CPU;
   4. the main path: full-width Far3DConfig() streaming inference, 7 cameras
@@ -35,7 +34,27 @@ Phases, each raising on failure:
      and whether two runs of each backward kernel are bitwise equal;
  11. device times of both backward kernels (warm L2 and after an L2 flush),
      the plain backward, the backward of the grid_sample composite, and
-     each kernel's bound from the bytes and operations these operands need.
+     each kernel's bound from the bytes and operations these operands need;
+ 12. the fused OSA block against its plain version at small and awkward
+     shapes (1 and 3 cameras, w one less and much less than wp, 16 and 160
+     conv channels, 512 output channels, rows past one tile, a bias that
+     makes ReLU zero a whole stage);
+ 13. the third main path: the eight identity blocks OSA4_2 .. OSA4_9 of the
+     full-width VoVNet-99, with the model's own seeded weights packed for the
+     kernel, on the stage-4 input of a phase-4 frame ((7, 768, 40, 60) bf16),
+     each block through osa_block (the osa_fused kernel, then the eSE gate
+     from tsum and the identity add); 8 launches, finite outputs, zero halo
+     rows and pad columns after every block, and the result against the
+     model's own stage4[1:] (cuDNN) on the same input; then the device time
+     of the eight blocks both ways;
+ 14. osa_fused against its plain version on the operands of OSA4_2 and of
+     OSA3_2 (80x120, wp 128, 512 -> 160 -> 512), and whether two runs are
+     bitwise equal;
+ 15. device times of one stage-4 block: the kernel (warm L2 and after an L2
+     flush), the plain version, the same folded function through cuDNN and
+     one matmul (yardstick only, never called by the port), the model's own
+     unfused conv / BN / ReLU chain, and the bound from the block's
+     operations and bytes.
 Then it prints one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
@@ -44,6 +63,7 @@ comparison here is a full-f32 one; the main path's image side is bf16.
 """
 
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -58,7 +78,7 @@ import torch.nn.functional as F
 from far3d_tpu_torch.config import Far3DConfig, tiny_test_config
 from far3d_tpu_torch.entry import build_model, entry, run_frame, train_entry
 from far3d_tpu_torch.models.farhead import init_state
-from far3d_tpu_torch.ops import _build, msda_cuda
+from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
@@ -69,8 +89,18 @@ FRAMES = 8                     # streaming frames on the main path
 LAYERS_PER_FRAME = 6           # one MSDA launch per decoder layer
 TRAIN_STEPS = 6                # full-width training steps
 OVERFIT_STEPS = 30
+OSA_BLOCKS = 8                 # OSA4_2 .. OSA4_9, the identity blocks of stage 4
+# The eight fused blocks against the model's own modules: the model rounds
+# each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
+# kernel applies it in f32 on the f32 sum and rounds once, so each of a
+# block's six stages may differ by a bf16 step or two, and the identity adds
+# carry the differences on through eight blocks: the largest difference is
+# held to 5% of the output's largest entry (13 bf16 steps) and the mean
+# difference to 0.5%.
+OSA_PATH_TOL = dict(max_share=5e-2, mean_share=5e-3)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9    # H100 SXM top SM clock, for torch.cuda._sleep
 EDGE_TOL = dict(rtol=1e-5, atol=1e-5)
 # Production shape: both sides accumulate in f32 from the same bf16 rows and
@@ -99,12 +129,19 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def shared_cases(name):
+    """tests/_msda_cases.py or tests/_osa_cases.py: the cases this script
+    shares with the card tests (tests/test_torch_port_cuda.py)."""
+    tests = str(Path(__file__).resolve().parent / 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
 def edge_cases(dev):
     """The MSDA cases of tests/_msda_cases.py: in bounds, mixed, fully
     outside, and u, v exactly at 0, 1 and at pixel centres."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tests'))
-    from _msda_cases import CASES
-    for name, make in CASES.items():
+    for name, make in shared_cases('_msda_cases').CASES.items():
         value, shapes, loc, weights = make()
         v, loc, w = [torch.from_numpy(a).to(dev) for a in (value, loc, weights)]
         got = msda(v, shapes, loc, w)
@@ -376,9 +413,9 @@ def composite_backward(value, shapes, loc, weights, grad_out):
     return lambda: torch.autograd.grad(out, (v, l, w), g, retain_graph=True)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
@@ -530,6 +567,210 @@ def backward_times(value, shapes, loc, weights, grad_out, ref, card):
     return t
 
 
+def nhwc_plane(x_nchw, wp):
+    """A backbone activation (n, c, h, w) in the fused block's padded rows."""
+    return osa.pad_plane(x_nchw.permute(0, 2, 3, 1), wp).contiguous()
+
+
+def zero_borders(x_pad, sh):
+    """Whether the halo rows and the pad columns of a padded plane are zero."""
+    r = sh['h'] * sh['wp']
+    plane = x_pad[:, osa.HALO:osa.HALO + r].reshape(
+        x_pad.shape[0], sh['h'], sh['wp'], -1)
+    return not (x_pad[:, :osa.HALO].any() or x_pad[:, osa.HALO + r:].any()
+                or plane[:, :, sh['w']:].any())
+
+
+def osa_small_shapes(dev):
+    """Phase 12: the kernel against osa_reference at the shapes of
+    tests/_osa_cases.py (tolerance there: one bf16 step of the largest entry
+    per stage, six stages; tsum 1e-3 of its largest; exact zero borders)."""
+    shared = shared_cases('_osa_cases')
+    cases = [(name, sh, None) for name, sh in sorted(shared.OSA_SHAPES.items())]
+    cases.append(('negative_bias_zeroes_stage_3',
+                  shared.OSA_SHAPES['n3_w_much_less_than_wp'], 2))
+    for seed, (name, sh, negative) in enumerate(cases):
+        operands = shared.osa_operands(sh, seed, dev, negative_stage=negative)
+        got = osa.fused_osa(*operands, sh)
+        torch.cuda.synchronize()
+        err, terr = shared.assert_osa_close(
+            got, osa.osa_reference(*operands, sh), sh)
+        log(f'  {name} {sh}: y max_abs_err {err:.3e}, tsum max_abs_err '
+            f'{terr:.3e} (tol: y 6 x 2^-8 x max |y|, tsum 1e-3 x max)')
+
+
+def osa_main_path(stage4, x_in, sh, card):
+    """Phase 13: OSA4_2 .. OSA4_9 through osa_block, the launch count set to
+    0 just before and read just after, against the model's own modules."""
+    blocks = list(stage4)[1:]
+    if len(blocks) != OSA_BLOCKS:
+        raise AssertionError(f'stage 4 has {len(blocks)} identity blocks')
+    packed = [osa.pack_osa_weights(m) for m in blocks]
+    mask = osa.interior_mask(sh['h'], sh['w'], sh['wp'], device=x_in.device)
+    x_pad = nhwc_plane(x_in, sh['wp'])
+    if not zero_borders(x_pad, sh):
+        raise AssertionError('pad_plane left non-zero borders')
+
+    def fused_chain(x_pad):
+        outs = []
+        for module, weights in zip(blocks, packed):
+            x_pad = osa.osa_block(module, x_pad, mask, weights, sh)
+            outs.append(x_pad)
+        return outs
+
+    def model_chain(x):
+        for module in blocks:
+            x = module(x)
+        return x
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs = fused_chain(x_pad)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if launches['osa_fused'] != OSA_BLOCKS or any(
+            v for k, v in launches.items() if k != 'osa_fused'):
+        raise AssertionError(f'launches on the third path: {launches}, '
+                             f'expected osa_fused {OSA_BLOCKS} and no other')
+    for i, out in enumerate(outs):
+        if out.dtype != torch.bfloat16 or not torch.isfinite(out).all():
+            raise AssertionError(f'block {i}: output not finite bf16')
+        if not zero_borders(out, sh):
+            raise AssertionError(f'block {i}: halo rows or pad columns are '
+                                 'not zero')
+    got = osa.unpad_plane(outs[-1], sh['h'], sh['w'], sh['wp']).float()
+    want = model_chain(x_in).permute(0, 2, 3, 1).float()
+    if got.shape != want.shape:
+        raise AssertionError(f'shapes {tuple(got.shape)} / {tuple(want.shape)}')
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    ok = (err <= OSA_PATH_TOL['max_share'] * scale
+          and mean_err <= OSA_PATH_TOL['mean_share'] * scale)
+    log(f'  input {tuple(x_in.shape)} {x_in.dtype} -> {OSA_BLOCKS} blocks, '
+        f'launches {launches}; finite, halo rows and pad columns zero after '
+        'every block')
+    log(f'  against stage4[1:] (cuDNN): max_abs_err {err:.3e}, mean_abs_err '
+        f'{mean_err:.3e}, max |x| {scale:.3e} (tol {OSA_PATH_TOL} of max '
+        f'|x|): {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError('the fused stage-4 chain disagrees with the '
+                             'model')
+    del outs, got, want, diff
+    chain_ms = device_ms(lambda: fused_chain(x_pad), 10)
+    model_ms = device_ms(lambda: model_chain(x_in), 10)
+    log(f'  device time of the {OSA_BLOCKS} blocks, gate and identity add '
+        f'included (mean of 10 chains): through osa_block {chain_ms:.4f} ms, '
+        f'through the model\'s modules (cuDNN) {model_ms:.4f} ms [{card}]')
+    return dict(launches=launches['osa_fused'], path_err=err,
+                path_mean_err=mean_err, chain_ms=chain_ms, model_ms=model_ms,
+                operands=(x_pad, mask, packed[0]))
+
+
+def osa_check(name, operands, sh):
+    """Phase 14: the kernel against osa_reference on a model's operands (the
+    tolerance of tests/_osa_cases.py), and whether two runs are bitwise
+    equal."""
+    got = osa_cuda.osa_fused(*operands, sh)
+    torch.cuda.synchronize()
+    want = osa.osa_reference(*operands, sh)
+    err, terr = shared_cases('_osa_cases').assert_osa_close(got, want, sh)
+    again = osa_cuda.osa_fused(*operands, sh)
+    bitwise = bool(torch.equal(got[0], again[0])
+                   and torch.equal(got[1], again[1]))
+    log(f'  {name} x_pad {tuple(operands[0].shape)}: y max_abs_err {err:.3e} '
+        f'(max |y| {want[0].float().abs().max().item():.3e}, tol 6 x 2^-8 x '
+        f'max), tsum max_abs_err {terr:.3e} (max '
+        f'{want[1].abs().max().item():.3e}, tol 1e-3 x max); two runs bitwise '
+        f'equal: {bitwise}')
+    return err, bitwise
+
+
+def folded_cudnn_osa(module):
+    """Yardstick: the block's function as an inference engine would fold it,
+    BN scale into bf16 channels-last conv weights and BN shift into the conv
+    bias, through F.conv2d and, for the 1x1 conv over the concat, one
+    matmul; the ReLUs in place. Returns f(x (n, c, h, w) channels-last bf16)
+    -> (y (n, h, w, cout), tsum (n, cout) f32). Never called by the port."""
+    def fold(block):
+        conv, bn = block[0], block[1]
+        inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        w = (conv.weight * inv.view(-1, 1, 1, 1)).to(torch.bfloat16)
+        return (w.contiguous(memory_format=torch.channels_last),
+                (bn.bias - bn.running_mean * inv).to(torch.bfloat16))
+
+    with torch.no_grad():
+        convs = [fold(layer) for layer in module.layers]
+        wc, bc = fold(module.concat)
+        wc = wc.flatten(1).t().contiguous()              # (cin + 5*cm, cout)
+
+    def run(x):
+        feats, cur = [x], x
+        for w, b in convs:
+            cur = F.relu_(F.conv2d(cur, w, b, padding=1))
+            feats.append(cur)
+        cat = torch.cat(feats, dim=1).permute(0, 2, 3, 1)    # NHWC view
+        n, h, wd, c = cat.shape
+        y = F.relu_(torch.addmm(bc, cat.reshape(-1, c), wc)).view(n, h, wd, -1)
+        return y, y.sum(dim=(1, 2), dtype=torch.float32)
+    return run
+
+
+def unfused_module_osa(module):
+    """The model's own chain up to the gate: conv, then the frozen BN as a
+    bf16 multiply and add, then ReLU, six times, with the concat."""
+    def run(x):
+        feats = [x]
+        for layer in module.layers:
+            x = layer(x)
+            feats.append(x)
+        return module.concat(torch.cat(feats, dim=1))
+    return run
+
+
+def osa_times(module, x_in, operands, sh, card):
+    """Phase 15: device times of one stage-4 block and its bound."""
+    x_pad, mask, weights = operands
+    n = x_pad.shape[0]
+    h, w, cin, cm, cout = (sh[k] for k in ('h', 'w', 'cin', 'cm', 'cout'))
+    macs_per_pixel = 9 * cin * cm + 4 * 9 * cm * cm + (cin + 5 * cm) * cout
+    flops = 2 * n * h * w * macs_per_pixel
+    padded_flops = 2 * n * h * sh['wp'] * macs_per_pixel
+    y, tsum = osa_cuda.osa_fused(*operands, sh)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x_pad, mask, y, tsum, *weights.values()))
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    library, unfused = folded_cudnn_osa(module), unfused_module_osa(module)
+    t = dict(
+        ms=device_ms(lambda: osa_cuda.osa_fused(*operands, sh), 30),
+        cold=cold_l2_ms(lambda: osa_cuda.osa_fused(*operands, sh), 20),
+        plain_ms=device_ms(lambda: osa.osa_reference(*operands, sh), 3),
+        library_ms=device_ms(lambda: library(x_in), 30),
+        unfused_ms=device_ms(lambda: unfused(x_in), 30),
+        bound_ms=bound_ms, bound_by=bound_by)
+    y_ref = osa.unpad_plane(y, h, w, sh['wp']).float()
+    scale = y_ref.abs().max().item()
+    lib_err = (library(x_in)[0].float() - y_ref).abs().max().item()
+    unf_err = (unfused(x_in).permute(0, 2, 3, 1).float()
+               - y_ref).abs().max().item()
+    log(f'  osa_fused {t["ms"]:.4f} ms warm L2 (mean of 30 back-to-back), '
+        f'{t["cold"]:.4f} ms after an L2 flush (median of 20), '
+        f'{flops / t["ms"] / 1e9:.1f} TFLOP/s; plain (osa_reference, f32 '
+        f'matmuls) {t["plain_ms"]:.4f} ms [{card}]')
+    log(f'  folded cuDNN chain + one matmul {t["library_ms"]:.4f} ms (its '
+        f'max_abs_err against the kernel {lib_err:.3e}); the model\'s unfused '
+        f'conv / BN / ReLU chain {t["unfused_ms"]:.4f} ms (max_abs_err '
+        f'{unf_err:.3e}); max |y| {scale:.3e} [{card}]')
+    log(f'  bound {bound_ms:.4f} ms ({bound_by}): {flops / 1e9:.1f} GFLOP '
+        f'bf16 at 989 TFLOP/s = {flops / BF16_FLOPS_PER_S * 1e3:.4f} ms over '
+        f'the {n * h * w} real pixels ({padded_flops / 1e9:.1f} GFLOP = '
+        f'{padded_flops / BF16_FLOPS_PER_S * 1e3:.4f} ms over the '
+        f'{n * h * sh["wp"]} padded rows the kernel computes); '
+        f'{nbytes / 1e6:.2f} MB at 3.35 TB/s = '
+        f'{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms')
+    return t
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -546,12 +787,12 @@ def main():
         f'device {kind}, count {torch.cuda.device_count()}, '
         f'TF32 off (matmul and cuDNN)')
 
-    log('== phase 2: build the MSDA forward and backward kernels')
+    log('== phase 2: build every kernel source')
     t0 = time.perf_counter()
-    msda_cuda.build()
-    log(f'  msda_fwd.cu and msda_bwd.cu built in parallel and loaded in '
-        f'{time.perf_counter() - t0:.2f} s')
-    for src in ('msda_fwd', 'msda_bwd'):
+    _build.build_all()
+    log(f'  {", ".join(f"{src}.cu" for src in _build.SOURCES)} built in '
+        f'parallel and loaded in {time.perf_counter() - t0:.2f} s')
+    for src in _build.SOURCES:
         log(f'  {src}.cu: nvcc {_build.build_seconds.get(src, 0.0):.2f} s')
         for line in _build.build_logs.get(src, '').splitlines():
             if 'registers' in line or 'spill' in line:
@@ -576,6 +817,14 @@ def main():
             captured['args'] = [a.detach().clone() for a in args]
 
     hook = sampler.register_forward_pre_hook(capture)
+    backbone = step.model.img_backbone
+    stage3, stage4 = backbone.stage3, backbone.stage4
+    osa_inputs = {}
+    osa_hooks = [
+        block.register_forward_pre_hook(
+            lambda module, args, key=key: osa_inputs.setdefault(
+                key, args[0].detach().clone()))
+        for key, block in (('OSA3_2', stage3.OSA3_2), ('OSA4_2', stage4.OSA4_2))]
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     frame_ms = []
@@ -596,6 +845,10 @@ def main():
             f'{int(dets["valid"].sum())}')
     launches = _build.launch_counts['msda_fwd']
     hook.remove()
+    for h in osa_hooks:
+        h.remove()
+    if _build.launch_counts['osa_fused']:
+        raise AssertionError('the model\'s main path must not run osa_fused')
     if launches != LAYERS_PER_FRAME * FRAMES:
         raise AssertionError(f'msda_fwd launched {launches} times in {FRAMES} '
                              f'frames, expected {LAYERS_PER_FRAME * FRAMES}')
@@ -654,7 +907,7 @@ def main():
         f'ms); {hits} corner hits, {flops / 1e9:.3f} GFLOP f32 at 67 TFLOP/s '
         f'= {t_ops:.4f} ms')
 
-    del step, state, captured, dets, value, loc, weights, got, want
+    del step, state, captured, dets, value, loc, weights, got, want, backbone
     torch.cuda.empty_cache()
 
     log('== phase 7: tiny train step, card vs CPU')
@@ -689,6 +942,29 @@ def main():
                                check['ref'], card)
     ms_step, train_launches = train['ms_step'], train['launches']
     errs = check['errs']
+    del train['operands'], check['ref'], value, loc, weights, grad_out
+    torch.cuda.empty_cache()
+
+    log('== phase 12: osa_fused vs plain, small and awkward shapes')
+    with torch.inference_mode():
+        osa_small_shapes(dev)
+
+        log('== phase 13: the third path, stage 4 of the full-width backbone '
+            'through osa_fused')
+        sh4, sh3 = osa.shapes_for_stage(4), osa.shapes_for_stage(3)
+        x4, x3 = osa_inputs['OSA4_2'], osa_inputs['OSA3_2']
+        path = osa_main_path(stage4, x4, sh4, card)
+
+        log('== phase 14: osa_fused vs plain on the model\'s operands')
+        osa_err, osa_bitwise = osa_check('OSA4_2', path['operands'], sh4)
+        operands3 = (nhwc_plane(x3, sh3['wp']),
+                     osa.interior_mask(sh3['h'], sh3['w'], sh3['wp'], device=dev),
+                     osa.pack_osa_weights(stage3.OSA3_2))
+        osa_err3, osa_bitwise3 = osa_check('OSA3_2', operands3, sh3)
+        del operands3
+
+        log('== phase 15: times of one stage-4 block')
+        osa_t = osa_times(stage4.OSA4_2, x4, path['operands'], sh4, card)
 
     common = {'route': 'cuda', 'ms_per_frame': ms_frame, 'ms_per_step': ms_step,
               'peak_gib_train': train['peak_gib']}
@@ -732,6 +1008,25 @@ def main():
         'plain_ms': times['plain_ms'], 'plain': bwd_plain,
         'bound_ms': times['dattn_bound'], 'bound_by': times['dattn_by'],
         'library_ms': times['library_ms'], 'library': bwd_lib,
+    }, {
+        'name': 'osa_fused', **common,
+        'source': 'far3d_tpu_torch/csrc/osa_fused.cu',
+        'replaces': 'tools/dev_micro_osa_pallas.py:59',
+        'launches': path['launches'],
+        'max_abs_err': osa_err, 'stage3_max_abs_err': osa_err3,
+        'path_max_abs_err': path['path_err'],
+        'bitwise_repeatable': osa_bitwise and osa_bitwise3,
+        'ms': osa_t['ms'], 'kernel_ms': osa_t['ms'],
+        'ms_cold_l2': osa_t['cold'],
+        'plain_ms': osa_t['plain_ms'],
+        'plain': 'osa_reference: shifted f32 matmuls of the bf16 operands',
+        'bound_ms': osa_t['bound_ms'], 'bound_by': osa_t['bound_by'],
+        'library_ms': osa_t['library_ms'],
+        'library': 'BN folded into bf16 channels-last F.conv2d x5 + one '
+                   'addmm over the concat',
+        'unfused_module_ms': osa_t['unfused_ms'],
+        'stage4_chain_ms': path['chain_ms'],
+        'stage4_model_chain_ms': path['model_ms'],
     }]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -22,6 +22,7 @@ from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+SOURCES = ('msda_fwd', 'msda_bwd', 'osa_fused')     # every csrc/<name>.cu
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -93,3 +94,9 @@ def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return load_kernel_libraries(name)[0]
+
+
+def build_all() -> List[ctypes.CDLL]:
+    """Build (if needed) and load every kernel source of the port, all nvcc
+    runs started together; a failed build of any raises."""
+    return load_kernel_libraries(*SOURCES)

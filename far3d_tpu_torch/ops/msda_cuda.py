@@ -46,15 +46,6 @@ def _entry(source: str, name: str):
     return fn
 
 
-def build() -> None:
-    """Builds (if needed) and loads both libraries, their two nvcc runs
-    started together; a failed build of either raises."""
-    _build.load_kernel_libraries('msda_fwd', 'msda_bwd')
-    for source, name in (('msda_fwd', FWD), ('msda_bwd', DVAL),
-                         ('msda_bwd', DATTN)):
-        _entry(source, name)
-
-
 def _check(name, value, spatial_shapes, loc, weights, grad_out=None) -> None:
     tensors = [('value', value), ('loc', loc), ('weights', weights)]
     if grad_out is not None:

@@ -1,6 +1,6 @@
-"""The hand-written CUDA MSDA kernels (forward, and the two backward
-kernels through autograd) against their plain PyTorch versions, on the
-card. These tests import neither jax nor the JAX package, and skip where
+"""The hand-written CUDA kernels (the MSDA forward, its two backward
+kernels through autograd, and the fused OSA block) against their plain
+PyTorch versions, on the card. These tests import neither jax nor the JAX package, and skip where
 there is no card. On a machine with a card and without jax:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from _msda_cases import CASES
-from far3d_tpu_torch.ops import _build, msda_cuda
+from _osa_cases import OSA_SHAPES, assert_osa_close, osa_operands
+from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
 from far3d_tpu_torch.ops.msda import (msda, msda_backward_reference,
                                       msda_reference)
 
@@ -129,3 +130,63 @@ def test_cuda_backward_launches_each_kernel_once(cuda_device):
     for name in ('msda_dval', 'msda_dattn'):
         assert _build.launch_counts[name] == before[name] + 1, name
     assert _build.launch_counts['msda_fwd'] == before['msda_fwd']
+
+
+# ---- the fused OSA block ---------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(OSA_SHAPES))
+def test_cuda_osa_matches_reference(name, cuda_device):
+    sh = OSA_SHAPES[name]
+    x_pad, mask, weights = osa_operands(sh, 0, cuda_device)
+    before = _build.launch_counts['osa_fused']
+    got = osa.fused_osa(x_pad, mask, weights, sh)
+    torch.cuda.synchronize()
+    assert _build.launch_counts['osa_fused'] == before + 1
+    assert_osa_close(got, osa.osa_reference(x_pad, mask, weights, sh), sh)
+
+
+@pytest.mark.cuda
+def test_cuda_osa_negative_bias_zeroes_a_stage(cuda_device):
+    sh = OSA_SHAPES['n3_w_much_less_than_wp']
+    x_pad, mask, weights = osa_operands(sh, 1, cuda_device, negative_stage=2)
+    got = osa.fused_osa(x_pad, mask, weights, sh)
+    assert_osa_close(got, osa.osa_reference(x_pad, mask, weights, sh), sh)
+
+
+@pytest.mark.cuda
+def test_cuda_osa_is_bitwise_repeatable(cuda_device):
+    """No atomics: tsum is summed per tile and then over the tiles in a
+    fixed order. A second call also finds other scratch memory."""
+    sh = OSA_SHAPES['cm160_ragged_channel_tile']
+    x_pad, mask, weights = osa_operands(sh, 2, cuda_device)
+    y1, t1 = osa.fused_osa(x_pad, mask, weights, sh)
+    junk = torch.full((64, 2**20), 7.0, device=cuda_device)   # dirty the pool
+    del junk
+    y2, t2 = osa.fused_osa(x_pad, mask, weights, sh)
+    assert torch.equal(y1, y2) and torch.equal(t1, t2)
+
+
+@pytest.mark.cuda
+def test_cuda_osa_refuses_what_the_kernel_does_not_take(cuda_device):
+    sh = OSA_SHAPES['n1_w_one_less_than_wp']
+    x_pad, mask, weights = osa_operands(sh, 3, cuda_device)
+    with pytest.raises(TypeError, match='bfloat16'):
+        osa_cuda.osa_fused(x_pad.float(), mask, weights, sh)
+    with pytest.raises(TypeError, match='float32'):
+        osa_cuda.osa_fused(x_pad, mask, dict(weights, s5=weights['s5'].bfloat16()), sh)
+    with pytest.raises(ValueError, match='contiguous'):
+        osa_cuda.osa_fused(x_pad, mask, dict(
+            weights, w1=weights['w1'].t().contiguous().t()), sh)
+    with pytest.raises(ValueError, match='x_pad'):
+        osa_cuda.osa_fused(x_pad[:, :-1].contiguous(), mask, weights, sh)
+    with pytest.raises(ValueError, match='w \\+ 1'):
+        osa_cuda.osa_fused(x_pad, mask, weights, dict(sh, w=16))
+    wide = dict(sh, wp=136, h=1)
+    with pytest.raises(ValueError, match='halo'):
+        osa_cuda.osa_fused(osa.pad_plane(torch.zeros(
+            1, 1, 15, 32, dtype=torch.bfloat16, device=cuda_device), 136),
+            osa.interior_mask(1, 15, 136, device=cuda_device), weights, wide)
+    odd = dict(sh, cm=24)
+    with pytest.raises(ValueError):
+        osa_cuda.osa_fused(x_pad, mask, weights, odd)

@@ -15,7 +15,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'far3d_tpu')
 
 def test_import_loads_no_jax():
     code = ('import sys, far3d_tpu_torch, far3d_tpu_torch.entry, '
-            'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.train.step; '
+            'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.ops.osa_cuda, '
+            'far3d_tpu_torch.train.step; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -36,7 +37,8 @@ def _imported_roots(path):
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / 'far3d_tpu_torch').rglob('*.py')]
-    + ['chip_smoke.py', 'tools/profile_torch_port.py']))
+    + ['chip_smoke.py', 'tools/profile_torch_port.py',
+       'tools/micro_osa_torch.py']))
 def test_source_imports_no_jax(path):
     roots = set(_imported_roots(ROOT / path))
     assert not roots & set(FORBIDDEN), (path, sorted(roots & set(FORBIDDEN)))
@@ -79,3 +81,20 @@ def test_train_entry_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_entry(tiny_test_config())
+
+
+def test_osa_cuda_wrapper_refuses_cpu_tensors():
+    """`osa_cuda.osa_fused` never computes on the CPU (the dispatcher
+    `fused_osa` is what routes CPU tensors to `osa_reference`)."""
+    from far3d_tpu_torch.ops import osa
+    from far3d_tpu_torch.ops.osa_cuda import osa_fused
+    sh = dict(h=2, w=3, wp=4, cin=16, cm=16, cout=16)
+    bf16 = dict(dtype=torch.bfloat16)
+    weights = dict(w1=torch.zeros(9 * 16, 16, **bf16),
+                   w2345=torch.zeros(4 * 9 * 16, 16, **bf16),
+                   wcat=torch.zeros(16 + 5 * 16, 16, **bf16),
+                   s5=torch.ones(5, 16), b5=torch.zeros(5, 16),
+                   sc=torch.ones(1, 16), bc=torch.zeros(1, 16))
+    x_pad = osa.pad_plane(torch.zeros(1, 2, 3, 16, **bf16), sh['wp'])
+    with pytest.raises(ValueError, match='CUDA'):
+        osa_fused(x_pad, osa.interior_mask(2, 3, 4), weights, sh)
