@@ -7,13 +7,15 @@ Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
      msda_bwd.cu, osa_fused.cu), one nvcc each, all started together;
-  3. kernel vs plain version on edge cases (f32), and the tiny model on the
-     card against the same model on the CPU;
+  3. kernel vs plain version on the shared cases of tests/_msda_cases.py
+     (f32: edge cases, crowded, production_like, rows_past_int16), and the
+     tiny model on the card against the same model on the CPU;
   4. the main path: full-width Far3DConfig() streaming inference, 7 cameras
      at 640x960 with bf16 images, several frames with the temporal state
      carried, each decoded; the MSDA kernel must launch 6 times a frame;
   5. kernel vs plain version at the production shape (operands captured from
-     the first decoder layer of a phase-4 frame, bf16 value pyramid);
+     the first decoder layer of a phase-4 frame, bf16 value pyramid), and
+     whether two runs are bitwise equal;
   6. CUDA-event device times of the kernel (warm L2 and after an L2 flush),
      the plain version and a grid_sample composite (yardstick only, never
      called by the port), and the kernel's bound from the bytes and
@@ -30,11 +32,14 @@ Phases, each raising on failure:
      msda_fwd, msda_dval and msda_dattn launched 6 times a step; ms/step
      and peak memory;
  10. all three kernels against their plain versions on the operands
-     (value, loc, weights, grad_out) of decoder layer 0 of a phase-9 step,
-     and whether two runs of each backward kernel are bitwise equal;
- 11. device times of both backward kernels (warm L2 and after an L2 flush),
-     the plain backward, the backward of the grid_sample composite, and
-     each kernel's bound from the bytes and operations these operands need;
+     (value, loc, weights, grad_out) of decoder layer 0 of a phase-9 step;
+     two runs of msda_dval must be bitwise equal, and whether two runs of
+     msda_dattn are is reported;
+ 11. device times of both backward kernels and of msda_fwd on these
+     operands (warm L2 and after an L2 flush), msda_dval's device time by
+     launch (torch.profiler), the plain backward, the backward of the
+     grid_sample composite, and each kernel's bound from the bytes and
+     operations these operands need;
  12. the fused OSA block against its plain version at small and awkward
      shapes (1 and 3 cameras, w one less and much less than wp, 16 and 160
      conv channels, 512 output channels, rows past one tile, a bias that
@@ -109,8 +114,9 @@ EDGE_TOL = dict(rtol=1e-5, atol=1e-5)
 PROD_TOL = dict(rtol=1e-2, atol=1e-3)
 TINY_TOL = dict(rtol=1e-3, atol=2e-3)
 # Backward at the production training shape, same bf16 inputs on both sides:
-# d_value is summed in f32 (atomics on the card, in another order) and
-# rounded once to bf16, so one bf16 step (2^-8 relative) apart; d_loc and
+# d_value is summed in f32 (on the card by value row, in the order of the
+# sorted hit records, so in another order than autograd's) and rounded once
+# to bf16, so one bf16 step (2^-8 relative) apart; d_loc and
 # d_weights are f32 sums of up to 4 corners x 256 channels (x 4 levels for
 # d_loc) whose terms cancel, so their error is relative to the largest
 # entry of the tensor, not to each entry.
@@ -140,7 +146,8 @@ def shared_cases(name):
 
 def edge_cases(dev):
     """The MSDA cases of tests/_msda_cases.py: in bounds, mixed, fully
-    outside, and u, v exactly at 0, 1 and at pixel centres."""
+    outside, u, v exactly at 0, 1 and at pixel centres, crowded,
+    production_like and rows_past_int16."""
     for name, make in shared_cases('_msda_cases').CASES.items():
         value, shapes, loc, weights = make()
         v, loc, w = [torch.from_numpy(a).to(dev) for a in (value, loc, weights)]
@@ -196,16 +203,20 @@ def grid_sample_msda(value, shapes, loc, weights):
 
 def hold_card(one_rep, reps):
     """Queue a device-side sleep long enough for the host to queue `reps`
-    calls of `one_rep` behind it: twice the time of one synchronized call
-    (host and device) per rep, at most 0.5 s. The card then runs the calls
-    back to back, so the events between them time the device alone even
-    where a wrapper's host work per call (checks, allocation, the ctypes
-    call) takes longer than its kernel, which back-to-back calls without the
-    sleep would measure instead."""
-    t0 = time.perf_counter()
-    one_rep()
+    calls of `one_rep` behind it: 1.5 times the host's time to queue `reps`
+    calls, measured just before without waiting for the card, plus 10 ms, at
+    most 2 s. The card then runs the calls back to back, so the events
+    between them time the device alone even where a wrapper's host work per
+    call (checks, allocation, the ctypes calls, a torch sort) takes longer
+    than its kernels, which back-to-back calls without the sleep would
+    measure instead."""
     torch.cuda.synchronize()
-    hold_s = min(2 * reps * (time.perf_counter() - t0), 0.5)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_rep()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hold_s = min(1.5 * host_s + 0.01, 2.0)
     torch.cuda._sleep(int(hold_s * SLEEP_CYCLES_PER_S))
 
 
@@ -401,6 +412,24 @@ def backward_needs(value, shapes, loc, weights):
         hit_queries=hit_queries)
 
 
+def launch_breakdown(fn, reps=20):
+    """Device time of each kernel that one call of `fn` launches (mean over
+    `reps` calls under torch.profiler), largest first: [(name, ms)]."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, 'is_user_annotation', False)):
+            ms[ev.name] = ms.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return sorted(((k, v / reps) for k, v in ms.items()), key=lambda kv: -kv[1])
+
+
 def composite_backward(value, shapes, loc, weights, grad_out):
     """Yardstick: autograd's backward of the grid_sample composite (value,
     loc and weights gradients in f32), the forward taken once outside."""
@@ -493,8 +522,9 @@ def train_main_path(cfg, card):
 
 
 def backward_check(value, shapes, loc, weights, grad_out):
-    """Phase 10: each backward kernel against the plain backward (BWD_TOL),
-    and whether two runs of each are bitwise equal."""
+    """Phase 10: each backward kernel against the plain backward (BWD_TOL);
+    two msda_dval runs must be bitwise equal, and whether two msda_dattn
+    runs are is reported."""
     d_value = msda_cuda.msda_dval(value, shapes, loc, weights, grad_out)
     d_loc, d_weights = msda_cuda.msda_dattn(value, shapes, loc, weights,
                                             grad_out)
@@ -523,20 +553,26 @@ def backward_check(value, shapes, loc, weights, grad_out):
     dattn_bitwise = bool(torch.equal(d_loc, d_loc2)
                          and torch.equal(d_weights, d_weights2))
     log(f'  two msda_dval runs bitwise equal: {dval_bitwise} (max difference '
-        f'{rerun:.3e}: f32 atomics add in a run-dependent order, then round '
-        f'to {d_value.dtype}); two msda_dattn runs bitwise equal: '
-        f'{dattn_bitwise}')
+        f'{rerun:.3e}); two msda_dattn runs bitwise equal: {dattn_bitwise}')
+    if not dval_bitwise:
+        raise AssertionError('two msda_dval runs on the same operands differ')
     return dict(errs=errs, ref=ref, dval_bitwise=dval_bitwise,
                 dval_rerun_diff=rerun, dattn_bitwise=dattn_bitwise)
 
 
 def backward_times(value, shapes, loc, weights, grad_out, ref, card):
-    """Phase 11: device times of both kernels (warm L2, and after an L2
-    flush), the plain backward and the composite's backward, and each
-    kernel's bound from what these operands need."""
+    """Phase 11: device times of both backward kernels and of msda_fwd
+    (warm L2, and after an L2 flush), the plain backward and the
+    composite's backward, and each kernel's bound from what these operands
+    need."""
     args = (value, shapes, loc, weights, grad_out)
+    fwd_args = args[:4]
     t = dict(
-        dval_ms=device_ms(lambda: msda_cuda.msda_dval(*args), 100),
+        fwd_ms=device_ms(lambda: msda_cuda.msda_fwd(*fwd_args), 100),
+        fwd_cold=cold_l2_ms(lambda: msda_cuda.msda_fwd(*fwd_args), 30),
+        # 20 calls: a call queues 14 launches and copies, and a stream
+        # holds about a thousand before the host must wait for the card
+        dval_ms=device_ms(lambda: msda_cuda.msda_dval(*args), 20),
         dval_cold=cold_l2_ms(lambda: msda_cuda.msda_dval(*args), 30),
         dattn_ms=device_ms(lambda: msda_cuda.msda_dattn(*args), 100),
         dattn_cold=cold_l2_ms(lambda: msda_cuda.msda_dattn(*args), 30),
@@ -550,7 +586,17 @@ def backward_times(value, shapes, loc, weights, grad_out, ref, card):
         backward_needs(value, shapes, loc, weights)
     t['dval_bound'], t['dval_by'] = bound(dval_bytes, dval_flops)
     t['dattn_bound'], t['dattn_by'] = bound(dattn_bytes, dattn_flops)
-    log(f'  msda_dval {t["dval_ms"]:.4f} ms warm L2 (mean of 100 '
+    fwd_bytes, _, _, fwd_hits = needed_bytes(
+        value, shapes, loc, weights, grad_out)       # output: grad_out's size
+    t['fwd_bound'], t['fwd_by'] = bound(fwd_bytes, 2 * fwd_hits * value.shape[-1])
+    t['dval_parts'] = launch_breakdown(lambda: msda_cuda.msda_dval(*args))
+    log('  msda_dval by launch (torch.profiler, mean of 20 calls): ' + '; '.join(
+        f'{name[:70]} {ms:.4f} ms' for name, ms in t['dval_parts']))
+    log(f'  msda_fwd {t["fwd_ms"]:.4f} ms warm L2 (mean of 100 back-to-back), '
+        f'{t["fwd_cold"]:.4f} ms after an L2 flush (median of 30); bound '
+        f'{t["fwd_bound"]:.4f} ms ({t["fwd_by"]}): {fwd_bytes / 1e6:.2f} MB '
+        f'[{card}]')
+    log(f'  msda_dval {t["dval_ms"]:.4f} ms warm L2 (mean of 20 '
         f'back-to-back), {t["dval_cold"]:.4f} ms after an L2 flush (median of '
         f'30); msda_dattn {t["dattn_ms"]:.4f} / {t["dattn_cold"]:.4f} ms; '
         f'plain backward (all three gradients) {t["plain_ms"]:.4f} ms; '
@@ -657,10 +703,13 @@ def osa_main_path(stage4, x_in, sh, card):
         raise AssertionError('the fused stage-4 chain disagrees with the '
                              'model')
     del outs, got, want, diff
-    chain_ms = device_ms(lambda: fused_chain(x_pad), 10)
-    model_ms = device_ms(lambda: model_chain(x_in), 10)
+    # 4 chains: a chain queues about a hundred launches (the model's about
+    # two hundred), and a stream holds about a thousand before the host
+    # must wait for the card
+    chain_ms = device_ms(lambda: fused_chain(x_pad), 4)
+    model_ms = device_ms(lambda: model_chain(x_in), 4)
     log(f'  device time of the {OSA_BLOCKS} blocks, gate and identity add '
-        f'included (mean of 10 chains): through osa_block {chain_ms:.4f} ms, '
+        f'included (mean of 4 chains): through osa_block {chain_ms:.4f} ms, '
         f'through the model\'s modules (cuDNN) {model_ms:.4f} ms [{card}]')
     return dict(launches=launches['osa_fused'], path_err=err,
                 path_mean_err=mean_err, chain_ms=chain_ms, model_ms=model_ms,
@@ -871,8 +920,11 @@ def main():
         want = msda_reference(value, shapes, loc, weights)
         torch.testing.assert_close(got, want, **PROD_TOL)
         max_abs_err = (got.float() - want.float()).abs().max().item()
+        fwd_bitwise = bool(torch.equal(
+            got, msda_cuda.msda_fwd(value, shapes, loc, weights)))
         log(f'  max_abs_err {max_abs_err:.3e} (tol {PROD_TOL}), output max '
-            f'|x| {want.float().abs().max().item():.3e}')
+            f'|x| {want.float().abs().max().item():.3e}; two runs bitwise '
+            f'equal: {fwd_bitwise}')
 
         log('== phase 6: times at the production shape')
         kernel_ms = device_ms(lambda: msda_cuda.msda_fwd(value, shapes, loc,
@@ -976,8 +1028,11 @@ def main():
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
         'max_abs_err': max_abs_err, 'train_max_abs_err': train_fwd_err,
+        'bitwise_repeatable': fwd_bitwise,
         'ms': kernel_ms, 'kernel_ms': kernel_ms,
         'ms_cold_l2': kernel_cold_ms, 'plain_ms': plain_ms,
+        'train_ms': times['fwd_ms'], 'train_ms_cold_l2': times['fwd_cold'],
+        'train_bound_ms': times['fwd_bound'],
         'bound_ms': bound_ms,
         'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
         'library_ms': library_ms,
@@ -990,6 +1045,7 @@ def main():
         'train_launches': train_launches['msda_dval'],
         'max_abs_err': errs['d_value'],
         'bitwise_repeatable': check['dval_bitwise'],
+        'ms_by_launch': {k[:80]: v for k, v in times['dval_parts']},
         'ms': times['dval_ms'], 'kernel_ms': times['dval_ms'],
         'ms_cold_l2': times['dval_cold'],
         'plain_ms': times['plain_ms'], 'plain': bwd_plain,

@@ -10,167 +10,203 @@
 // with the bilinear corners of `_corner_data` (far3d_tpu_torch/ops/msda.py):
 // x = u*W - 0.5, y = v*H - 0.5, each out-of-bounds corner weighted zero.
 //
-// What bounds it on an H100: bytes. Per query and (level, point) it reads four
-// C-wide rows and does 2*C multiply-adds per row, about 1 FLOP per byte of
-// bf16 gathered, far below the ~20 FLOP/byte where the f32 CUDA cores would
-// become the limit. The least traffic is the value rows that some hit corner
-// reads, the weights of the points that hit, all of loc, and the output
-// written once. At production shape (7 cameras, 12,750 value rows of 256 bf16
-// channels, 1,156 queries, 13 points, 8 groups, 4 levels) that is at most
-// about 64 MB (~19 us at 3.35 TB/s) when every point hits; points that miss
-// the map need none of their rows or weights, so chip_smoke.py counts the
-// bytes its inputs need.
+// What bounds it on an H100: bytes. Per hit corner it reads one C-wide row
+// and does C multiply-adds, about 1 FLOP per byte of bf16 gathered, far below
+// the ~20 FLOP/byte where the f32 CUDA cores would become the limit. The least
+// traffic is the value rows that some hit corner reads, the weights of the
+// points that hit, all of loc, and the output written once; chip_smoke.py
+// counts these bytes from the operands of both main paths.
 //
-// Design. The TPU kernel is a tiled one-hot matmul only because Mosaic has no
-// vectorized gather from VMEM; Hopper gathers natively, so this is a direct
-// gather. One thread row (blockDim.x = C/2 threads) owns one query; each
-// thread owns two adjacent channels, so a corner load is one contiguous
-// C*sizeof(T) row across the thread row (512 bytes for C=256 in bf16), read
-// as bf16x2 / float2 words. Every thread of a row computes the same corners
-// from the query's location (a broadcast load), so the branches that skip a
-// (level, point) whose four corner weights are all zero, and each zero
-// corner, are uniform across the row: a point that projects outside the
-// camera, the common case, costs no value traffic. Accumulation is f32 in
-// registers; the output is written once in the value's type. Nothing is kept
-// in shared memory and no block synchronizes.
+// The gather reads a row once for each hit corner that lands on it, and
+// rows that several queries hit are read again from L2: its traffic from L2
+// to the SMs is the hits times the row width, several times the distinct
+// bytes above, so L2 bandwidth and the latency of each warp's dependent
+// loads, more than device memory, set its time.
+//
+// Design. One warp per (camera, query), in two phases.
+//  - Prologue: each lane computes the corners of one (level, point) pair per
+//    round (two rounds for 52 pairs). A warp prefix count compacts the hit
+//    corners (bilinear weight not zero) into a list in shared memory, in
+//    (level, point, corner) order: value row, bilinear weight,
+//    level * P + point. A query with no hit, most of them, writes zeros and
+//    leaves before reading any weight.
+//  - Gather: lane i owns VEC consecutive channels (VEC = 8 at C = 256, so a
+//    bf16 row is one 16-byte load a lane and 512 bytes across the warp). The
+//    warp walks the list U records at a time (U = 16 in bf16): it issues the
+//    U row loads and the U attention-weight loads of the lane's group
+//    (w[b,q,g,l,p], only those of the points that hit) before using any,
+//    then accumulates w * bw * row in f32 registers. The output is written
+//    once in the value's type. The summation order is fixed, so two runs are
+//    bitwise equal.
+// The hit list is not saved for the backward: msda_dval walks hits by value
+// row and msda_dattn by point, so neither could read a per-query list, and
+// writing it would cost more bytes than recomputing the corners.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "msda_common.cuh"
 
-#define MSDA_MAX_LEVELS 8
+namespace {
 
-struct Levels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];  // first row of the level in the value array
-  int n;
-};
+using msda::Corners;
+using msda::Levels;
 
-template <typename T> struct Pair;
+constexpr int kWarps = 8;  // (camera, query) pairs a block
 
-template <> struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
-  }
-  static __device__ __forceinline__ void store(float* p, float2 v) {
-    *reinterpret_cast<float2*>(p) = v;
-  }
-};
-
-template <> struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ void add_corner(float2& acc, const T* level_value,
-                                           int row, int channels, float wgt) {
-  const float2 v = Pair<T>::load(level_value + (size_t)row * channels);
-  acc.x = fmaf(wgt, v.x, acc.x);
-  acc.y = fmaf(wgt, v.y, acc.y);
-}
+// Shared-memory words of one warp: three arrays of up to 4*L*P hit records
+// (value row, bilinear weight, level*P + point).
+__host__ __device__ inline int warp_words(int lp) { return 12 * lp; }
 
 // value (B, rows, C); loc (B, Q, P, 2) f32; weights (B, Q, G, L, P) f32;
-// out (B, Q, C). Grid (ceil(Q / blockDim.y), B); block (C/2, queries per block).
-template <typename T>
-__global__ void msda_fwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ weights,
-                                T* __restrict__ out, Levels lv, int num_query,
-                                int num_points, int num_groups, int channels,
-                                int rows) {
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * blockDim.y + threadIdx.y;
-  if (q >= num_query) return;
-  const int ch = threadIdx.x * 2;
-  const int g = ch / (channels / num_groups);
-  const size_t bq = (size_t)b * num_query + q;
-  const float* lq = loc + bq * num_points * 2;
-  const float* wq = weights + (bq * num_groups + g) * lv.n * num_points;
-  const T* vb = value + (size_t)b * rows * channels + ch;
+// out (B, Q, C). One warp per item b * Q + q; lanes at or past C / VEC join
+// the prologue and idle in the gather.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ weights, T* __restrict__ out,
+                Levels lv, int items, int num_query, int num_points,
+                int num_groups, int channels, int rows) {
+  constexpr int N = msda::words<T, VEC>();
+  constexpr int U = 64 / N < 16 ? 64 / N : 16;   // rows in flight a lane
+  const unsigned full = 0xffffffffu;
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bq = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (bq >= items) return;                 // uniform over the warp
+  const int lp_n = lv.n * num_points;
+  int* rec_row = smem + warp * warp_words(lp_n);
+  float* rec_bw = reinterpret_cast<float*>(rec_row + 4 * lp_n);
+  int* rec_lp = rec_row + 8 * lp_n;
 
-  float2 acc = make_float2(0.f, 0.f);
-  for (int l = 0; l < lv.n; ++l) {
-    const int h = lv.h[l];
-    const int w = lv.w[l];
-    const float hf = (float)h;
-    const float wf = (float)w;
-    const T* vl = vb + (size_t)lv.start[l] * channels;
-    for (int p = 0; p < num_points; ++p) {
-      const float x = __ldg(lq + 2 * p) * wf - 0.5f;
-      const float y = __ldg(lq + 2 * p + 1) * hf - 0.5f;
-      const float x0 = floorf(x);
-      const float y0 = floorf(y);
-      const float dx = x - x0;
-      const float dy = y - y0;
-      // Validity in float, as in _corner_data: no int conversion of a
-      // coordinate that may be far outside the map (or NaN).
-      const bool vx0 = x0 >= 0.f && x0 < wf;
-      const bool vx1 = x0 + 1.f >= 0.f && x0 + 1.f < wf;
-      const bool vy0 = y0 >= 0.f && y0 < hf;
-      const bool vy1 = y0 + 1.f >= 0.f && y0 + 1.f < hf;
-      const float w00 = (vy0 && vx0) ? (1.f - dy) * (1.f - dx) : 0.f;
-      const float w01 = (vy0 && vx1) ? (1.f - dy) * dx : 0.f;
-      const float w10 = (vy1 && vx0) ? dy * (1.f - dx) : 0.f;
-      const float w11 = (vy1 && vx1) ? dy * dx : 0.f;
-      if (w00 == 0.f && w01 == 0.f && w10 == 0.f && w11 == 0.f) continue;
-      const float a = __ldg(wq + l * num_points + p);
-      const int ix = (int)x0;
-      const int iy = (int)y0;
-      if (w00 != 0.f) add_corner(acc, vl, iy * w + ix, channels, a * w00);
-      if (w01 != 0.f) add_corner(acc, vl, iy * w + ix + 1, channels, a * w01);
-      if (w10 != 0.f) add_corner(acc, vl, (iy + 1) * w + ix, channels, a * w10);
-      if (w11 != 0.f) add_corner(acc, vl, (iy + 1) * w + ix + 1, channels, a * w11);
+  const float* lq = loc + (size_t)bq * num_points * 2;
+  int n = 0;                               // hit corners listed so far
+  for (int base = 0; base < lp_n; base += 32) {
+    const int pair = base + lane;
+    float cw[4] = {0.f, 0.f, 0.f, 0.f};
+    int crow[4] = {0, 0, 0, 0};
+    int cnt = 0;
+    if (pair < lp_n) {
+      const int l = pair / num_points;
+      const int p = pair - l * num_points;
+      const msda::Level lvl = msda::level(lv, l);
+      const Corners c = msda::corners(__ldg(lq + 2 * p), __ldg(lq + 2 * p + 1),
+                                      lvl.h, lvl.w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        cw[k] = c.w[k];
+        crow[k] = lvl.start + c.row[k];
+        cnt += c.w[k] != 0.f;
+      }
+    }
+    int incl = cnt;                        // inclusive prefix over the lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(full, incl, off);
+      if (lane >= off) incl += t;
+    }
+    int slot = n + incl - cnt;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (cw[k] != 0.f) {
+        rec_row[slot] = crow[k];
+        rec_bw[slot] = cw[k];
+        rec_lp[slot] = pair;
+        ++slot;
+      }
+    }
+    n += __shfl_sync(full, incl, 31);
+  }
+  __syncwarp();
+
+  const int ch0 = lane * VEC;
+  if (ch0 >= channels) return;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  const float* wg = weights + ((size_t)bq * num_groups +
+                               ch0 / (channels / num_groups)) * lp_n;
+  const T* vb = value + (size_t)(bq / num_query) * rows * channels + ch0;
+  for (int r0 = 0; r0 < n; r0 += U) {
+    unsigned vals[U][N];
+    float coef[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u;
+      if (r < n) {
+        msda::load_words(vb + (size_t)rec_row[r] * channels, vals[u]);
+        coef[u] = __ldg(wg + rec_lp[r]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u;
+      if (r < n) msda::fma_words<T, VEC>(acc, coef[u] * rec_bw[r], vals[u]);
     }
   }
-  Pair<T>::store(out + bq * channels + ch, acc);
+  msda::store_vec<T, VEC>(out + (size_t)bq * channels + ch0, acc);
 }
+
+template <typename T>
+int launch(int vec, dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+           const void* value, const float* loc, const float* weights,
+           void* out, const Levels& lv, int items, int num_query,
+           int num_points, int num_groups, int channels, int rows) {
+  const T* v = static_cast<const T*>(value);
+  T* o = static_cast<T*>(out);
+#define MSDA_FWD_CASE(N)                                                      \
+  case N:                                                                     \
+    msda_fwd_kernel<T, N><<<grid, block, smem, s>>>(                          \
+        v, loc, weights, o, lv, items, num_query, num_points, num_groups,     \
+        channels, rows);                                                      \
+    break;
+  switch (vec) {
+    MSDA_FWD_CASE(2)
+    MSDA_FWD_CASE(4)
+    MSDA_FWD_CASE(8)
+    MSDA_FWD_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MSDA_FWD_CASE
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // C entry point. Pointers are device pointers from torch's data_ptr();
 // level_hw is a host array of num_levels (H, W) int pairs; stream is a
-// cudaStream_t. Returns cudaGetLastError() after the launch (0 = success).
-// The caller has checked shapes, types, contiguity and alignment.
+// cudaStream_t; vec is the channels a lane owns (2, 4, 8 or 16, C / vec <= 32,
+// (C / G) % vec == 0). Returns cudaGetLastError() after the launch
+// (0 = success). The caller has checked shapes, types, contiguity and the
+// alignment of value and out to min(16, vec * sizeof(T)) bytes.
 extern "C" int msda_fwd(const void* value, const void* loc, const void* weights,
-                        void* out, int value_is_bf16, int batch, int num_query,
-                        int num_points, int num_groups, int channels,
-                        int num_levels, const void* level_hw, int rows,
-                        void* stream) {
-  if (num_levels < 1 || num_levels > MSDA_MAX_LEVELS || channels % 2 != 0 ||
-      channels / 2 > 1024 || (channels / num_groups) % 2 != 0) {
+                        void* out, int value_is_bf16, int vec, int batch,
+                        int num_query, int num_points, int num_groups,
+                        int channels, int num_levels, const void* level_hw,
+                        int rows, void* stream) {
+  Levels lv;
+  if (!msda::make_levels(num_levels, level_hw, rows, &lv) || vec < 2 ||
+      channels % vec != 0 || channels / vec > 32 ||
+      (channels / num_groups) % vec != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  Levels lv;
-  const int* hw = static_cast<const int*>(level_hw);
-  int start = 0;
-  for (int l = 0; l < num_levels; ++l) {
-    lv.h[l] = hw[2 * l];
-    lv.w[l] = hw[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  lv.n = num_levels;
-  if (start != rows) return (int)cudaErrorInvalidValue;
-  if (batch == 0 || num_query == 0) return 0;
-
-  const int tx = channels / 2;
-  const int ty = tx >= 256 ? 1 : 256 / tx;  // about 256 threads a block
-  dim3 block(tx, ty);
-  dim3 grid((num_query + ty - 1) / ty, batch);
+  const long long items = (long long)batch * num_query;
+  if (items == 0) return 0;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t per_warp = warp_words(num_levels * num_points) * sizeof(int);
+  const int warps = (int)(48 * 1024 / per_warp < kWarps ? 48 * 1024 / per_warp
+                                                        : kWarps);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  dim3 block(32 * warps);
+  dim3 grid((unsigned)((items + warps - 1) / warps));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(loc);
+  const float* w = static_cast<const float*>(weights);
   if (value_is_bf16) {
-    msda_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(weights), static_cast<__nv_bfloat16*>(out), lv,
-        num_query, num_points, num_groups, channels, rows);
-  } else {
-    msda_fwd_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(weights), static_cast<float*>(out), lv,
-        num_query, num_points, num_groups, channels, rows);
+    return launch<__nv_bfloat16>(vec, grid, block, warps * per_warp, s, value,
+                                 l, w, out, lv, (int)items, num_query, num_points,
+                                 num_groups, channels, rows);
   }
-  return (int)cudaGetLastError();
+  return launch<float>(vec, grid, block, warps * per_warp, s, value, l, w, out,
+                       lv, (int)items, num_query, num_points, num_groups, channels,
+                       rows);
 }

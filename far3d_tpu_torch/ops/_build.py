@@ -3,9 +3,10 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, at its first use in a process,
-and loaded with ``ctypes``. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. A missing ``nvcc`` or a failed build raises.
+and loaded with ``ctypes``. A source may include the headers beside it
+(``csrc/*.cuh``). The library's file name carries a hash of the source, the
+headers and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -52,9 +53,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    """The library of ``csrc/<name>.cu``, named by a hash of the source and
-    the flags."""
-    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers of ``csrc/`` and the flags."""
+    headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes() + headers
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'{name}-{digest}.so'
 
@@ -65,8 +67,10 @@ def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
     waited for. Raises after all have ended if any build failed."""
     builds, failed = [], []
     for name in names:
+        if name in _libs:        # loaded: no hash of the sources per call
+            continue
         src, lib_path = CSRC / f'{name}.cu', _lib_path(name)
-        if name in _libs or lib_path.exists():
+        if lib_path.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)

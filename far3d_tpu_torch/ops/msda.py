@@ -14,7 +14,12 @@ Bilinear convention (mmcv im2col): x = u * W - 0.5, y = v * H - 0.5; each
 corner outside the feature map contributes zero on its own.
 
 ``msda_reference`` is the plain version, differentiable by autograd, and
-``msda_backward_reference`` its plain backward. ``msda`` routes by device: a
+``msda_backward_reference`` its plain backward. ``hit_records``,
+``segment_starts`` and ``dval_segments`` are the value gradient's bucketing:
+the plain versions of the kernels that list every corner hit by value row
+and find each row's run, around the stable torch sort that the CUDA value
+gradient runs between its kernels (``ops/msda_cuda.py:msda_dval``). ``msda``
+routes by device: a
 CPU tensor takes the plain version, a CUDA tensor launches the hand-written
 kernels (``ops/msda_cuda.py``: the forward, and in the backward the value and
 attention gradients) or raises. Nothing sends a CUDA tensor to the plain
@@ -99,6 +104,58 @@ def msda_backward_reference(value: torch.Tensor,
         out = msda_reference(v, spatial_shapes, l, w)
         d_v, d_l, d_w = torch.autograd.grad(out, (v, l, w), grad_out.float())
     return d_v.to(value.dtype), d_l, d_w
+
+
+def dval_key_dtype(rows: int) -> torch.dtype:
+    """int16 where the keys 0..rows fit (a stable sort then takes two radix
+    passes, not four), else int32."""
+    return torch.int16 if rows <= torch.iinfo(torch.int16).max else torch.int32
+
+
+def hit_records(loc: torch.Tensor,
+                spatial_shapes: Sequence[Tuple[int, int]]):
+    """The corner slots of every (camera, query, level, point), as the
+    kernel ``msda_dval_records`` writes them: slot
+    ((b * Q + q) * L + l) * P + p) * 4 + corner holds a key, the corner's
+    row in its camera's value rows, start(l) + row, or ``rows`` where its
+    bilinear weight is zero, and that weight, the keys in
+    ``dval_key_dtype(rows)``. Returns (keys, bw f32), both
+    (B * Q * L * P * 4,)."""
+    rows = sum(h * w for h, w in spatial_shapes)
+    keys, bws, start = [], [], 0
+    for h, w in spatial_shapes:
+        idx, bw = _corner_data(loc.float(), h, w)        # (B, Q, P, 4)
+        keys.append(torch.where(bw != 0, start + idx, rows))
+        bws.append(bw)
+        start += h * w
+    return (torch.stack(keys, dim=2).reshape(-1).to(dval_key_dtype(rows)),
+            torch.stack(bws, dim=2).reshape(-1))
+
+
+def segment_starts(sorted_keys: torch.Tensor, order: torch.Tensor,
+                   num_cams: int, rows: int) -> torch.Tensor:
+    """The plain version of the kernel ``msda_dval_starts``. Sorted by key
+    alone, the hits of value row r of camera b form one run, the runs in the
+    order of their segment id r * num_cams + b (the slots, which are
+    camera-major, keep each key's records in camera order). Returns starts
+    int32 (num_cams * rows + 1,): segment c's records are
+    order[starts[c]:starts[c + 1]], and starts[-1] is the number of hits;
+    the records with the sentinel key sort after them."""
+    n_seg = num_cams * rows
+    cam = order // max(order.numel() // num_cams, 1)
+    seg = (sorted_keys.long() * num_cams + cam).clamp(max=n_seg)
+    bounds = torch.arange(n_seg + 1, dtype=seg.dtype, device=seg.device)
+    return torch.searchsorted(seg, bounds, out_int32=True)
+
+
+def dval_segments(keys: torch.Tensor, num_cams: int, rows: int):
+    """The value gradient's bucketing of ``hit_records``' keys: a stable
+    sort, so the hits of one value row form one run ordered by slot, never
+    by arrival, then ``segment_starts``. Returns (sorted_keys, order int64:
+    the slot of each sorted record, starts)."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    return sorted_keys, order, segment_starts(sorted_keys, order, num_cams,
+                                              rows)
 
 
 def msda(value: torch.Tensor,

@@ -1,7 +1,14 @@
 """MSDA test cases shared by the port's CPU and card tests (numpy only, so
 that the card tests run where jax is not installed): in bounds, mixed in and
 out of bounds, fully outside, and u, v exactly at 0, 1 and at pixel centres
-(the cases of tests/test_msda_torch_oracle.py)."""
+(the cases of tests/test_msda_torch_oracle.py); crowded, where hundreds of
+(query, point) pairs land on one of two pixels at every level, so a value
+row gets hundreds of hits (the long runs of the value gradient's bucketed
+reduction, longer than its 256-record chunks); production_like, the
+model's C = 256, G = 8, P = 13 and 4 levels (52 (level, point) pairs, more
+than a warp's lanes) at a query count that no block's query count
+divides; and rows_past_int16, 48,000 value rows a camera, more than the value
+gradient's int16 keys hold."""
 
 import numpy as np
 
@@ -30,9 +37,28 @@ def _boundary_case():
     return value, shapes, loc, weights
 
 
+def _crowded_case():
+    """64 queries x 12 points a camera: three quarters of the pairs on one
+    spot, the rest on another, each jittered by less than a pixel of the
+    finest level, so the corner rows of a spot take hundreds of hits at
+    every level (768 at most)."""
+    value, shapes, _, weights = _case(5, 0, 1, b=2, q=64, p=12, g=2, c=16)
+    rng = np.random.RandomState(6)
+    spot = np.where(rng.rand(2, 64, 12, 1) < 0.75, [0.37, 0.58], [0.71, 0.22])
+    loc = (spot + rng.uniform(-0.01, 0.01, size=(2, 64, 12, 2))).astype(
+        np.float32)
+    return value, shapes, loc, weights
+
+
 CASES = {
     'in_bounds': lambda: _case(0, 0.05, 0.95),
     'mixed': lambda: _case(1, -0.3, 1.3),
     'outside': lambda: _case(2, 1.3, 2.0),
     'boundary': _boundary_case,
+    'crowded': _crowded_case,
+    'production_like': lambda: _case(
+        8, -0.2, 1.2, shapes=((16, 24), (8, 12), (4, 6), (2, 3)), b=2, q=37,
+        p=13, g=8, c=256),
+    'rows_past_int16': lambda: _case(
+        9, -0.1, 1.1, shapes=((160, 240), (80, 120)), b=2, q=6, p=4),
 }

@@ -41,7 +41,8 @@ from far3d_tpu_torch.models.heads2d import decode_boxes, flatten_levels
 from far3d_tpu_torch.models.heads2d import make_priors
 from far3d_tpu_torch.models.layers import BatchNorm, dropout
 from far3d_tpu_torch.ops import grid_mask
-from far3d_tpu_torch.ops.msda import msda_backward_reference
+from far3d_tpu_torch.ops.msda import (dval_segments, hit_records,
+                                      msda_backward_reference)
 from far3d_tpu_torch.train import dn as tdn
 from far3d_tpu_torch.train import optim as toptim
 from far3d_tpu_torch.train.losses2d import simota_assign, yolox_loss
@@ -90,6 +91,58 @@ def test_msda_backward_reference_matches_msda_xla_vjp(case):
                                    err_msg=f'd_{name}')
     if case == 'outside':
         assert not any(g.any() for g in got[:2])
+
+
+def _segment_sum(value, shapes, loc, weights, g_out):
+    """d_value from the bucketing the CUDA value gradient runs: each sorted
+    record's contribution bw * w[b, q, g, l, p] * g_out[b, q], added into
+    its value row in the sorted order. Also checks the order itself:
+    segment ids non-decreasing, one segment's records by ascending slot,
+    each segment's records between its starts, the sentinel keys after
+    every hit."""
+    b, rows, c = value.shape
+    _, q, p, _ = loc.shape
+    g, n_lvl = weights.shape[2], weights.shape[3]
+    keys, bw = hit_records(loc, shapes)
+    assert keys.dtype == (torch.int16 if rows <= 32767 else torch.int32)
+    sorted_keys, order, starts = dval_segments(keys, b, rows)
+    n = int(starts[-1])
+    assert n == int((bw != 0).sum()) == int((keys < rows).sum())
+    assert (sorted_keys[n:] == rows).all()
+    slot = order[:n]
+    cam = slot // (q * n_lvl * p * 4)
+    seg = sorted_keys[:n].long() * b + cam
+    assert ((seg[1:] > seg[:-1])
+            | ((seg[1:] == seg[:-1]) & (slot[1:] > slot[:-1]))).all()
+    assert torch.equal(seg, torch.repeat_interleave(
+        torch.arange(b * rows), (starts[1:] - starts[:-1]).long()))
+    point = slot // 4                       # ((b*Q + q)*L + l)*P + p
+    bq, lvl, pt = point // (n_lvl * p), (point // p) % n_lvl, point % p
+    coef = bw[slot, None] * weights.reshape(b * q, g, n_lvl, p)[bq, :, lvl, pt]
+    contrib = (coef[:, :, None] * g_out.reshape(b * q, g, c // g)[bq]
+               ).reshape(n, c)
+    row = cam * rows + sorted_keys[:n].long()
+    return torch.zeros(b * rows, c).index_add_(0, row, contrib).reshape(
+        b, rows, c)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_dval_segments_sum_to_msda_xla_vjp(case):
+    """The ordering the CUDA value gradient sums in (``hit_records`` as its
+    records kernel writes the keys, then ``dval_segments``: the stable sort
+    and the plain version of its starts kernel), summed segment by segment,
+    against the value gradient of ``jax.vjp(msda_xla)``: 1e-4 in f32, as
+    the plain backward above."""
+    value, shapes, loc, weights = CASES[case]()
+    g_out = _cotangent(value, loc)
+    _, vjp = jax.vjp(lambda v: msda_xla(v, shapes, jnp.asarray(loc),
+                                        jnp.asarray(weights)),
+                     jnp.asarray(value))
+    want = np.asarray(vjp(jnp.asarray(g_out))[0])
+    got = _segment_sum(*_t(value), shapes, *_t(loc, weights, g_out))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    if case == 'outside':
+        assert not got.any()
 
 
 def test_msda_backward_reference_matches_pallas_custom_vjp():
