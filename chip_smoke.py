@@ -8,8 +8,9 @@ Phases, each raising on failure:
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
      msda_bwd.cu, osa_fused.cu), one nvcc each, all started together;
   3. kernel vs plain version on the shared cases of tests/_msda_cases.py
-     (f32: edge cases, crowded, production_like, rows_past_int16), and the
-     tiny model on the card against the same model on the CPU;
+     (f32: edge cases, crowded, production_like, rows_past_int16,
+     sparse_pairs; msda_fwd, and msda_dval and msda_dattn within BWD_TOL),
+     and the tiny model on the card against the same model on the CPU;
   4. the main path: full-width Far3DConfig() streaming inference, 7 cameras
      at 640x960 with bf16 images, several frames with the temporal state
      carried, each decoded; the MSDA kernel must launch 6 times a frame;
@@ -33,13 +34,14 @@ Phases, each raising on failure:
      and peak memory;
  10. all three kernels against their plain versions on the operands
      (value, loc, weights, grad_out) of decoder layer 0 of a phase-9 step;
-     two runs of msda_dval must be bitwise equal, and whether two runs of
-     msda_dattn are is reported;
+     two runs of msda_dval, and two runs of msda_dattn, must be bitwise
+     equal;
  11. device times of both backward kernels and of msda_fwd on these
      operands (warm L2 and after an L2 flush), msda_dval's device time by
      launch (torch.profiler), the plain backward, the backward of the
-     grid_sample composite, and each kernel's bound from the bytes and
-     operations these operands need;
+     grid_sample composite for all three gradients and for loc and weights
+     alone (msda_dattn's function), and each kernel's bound from the bytes
+     and operations these operands need;
  12. the fused OSA block against its plain version at small and awkward
      shapes (1 and 3 cameras, w one less and much less than wp, 16 and 160
      conv channels, 512 output channels, rows past one tile, a bias that
@@ -147,18 +149,49 @@ def shared_cases(name):
 def edge_cases(dev):
     """The MSDA cases of tests/_msda_cases.py: in bounds, mixed, fully
     outside, u, v exactly at 0, 1 and at pixel centres, crowded,
-    production_like and rows_past_int16."""
+    production_like, rows_past_int16 and sparse_pairs; msda_fwd within
+    EDGE_TOL, msda_dval and msda_dattn (grad_out from seed 7, as in the card
+    tests, which hold them to tighter tolerances) within BWD_TOL."""
     for name, make in shared_cases('_msda_cases').CASES.items():
         value, shapes, loc, weights = make()
-        v, loc, w = [torch.from_numpy(a).to(dev) for a in (value, loc, weights)]
+        g = np.random.RandomState(7).randn(value.shape[0], loc.shape[1],
+                                           value.shape[2]).astype(np.float32)
+        v, loc, w, g = [torch.from_numpy(a).to(dev)
+                        for a in (value, loc, weights, g)]
         got = msda(v, shapes, loc, w)
         torch.cuda.synchronize()
         want = msda_reference(v, shapes, loc, w)
         torch.testing.assert_close(got, want, **EDGE_TOL)
         if name == 'outside' and torch.count_nonzero(got).item():
             raise AssertionError('fully outside locations gave non-zeros')
+        args = (v, shapes, loc, w, g)
+        errs = hold_backward(
+            (msda_cuda.msda_dval(*args), *msda_cuda.msda_dattn(*args)),
+            msda_backward_reference(*args), f'edge case {name}')
         log(f'  edge case {name}: max_abs_err '
-            f'{(got - want).abs().max().item():.3e} (tol {EDGE_TOL})')
+            f'{(got - want).abs().max().item():.3e} (tol {EDGE_TOL}); '
+            + ', '.join(f'{k} {e:.3e} (max |x| {m:.3e})'
+                        for k, (e, m) in errs.items()))
+
+
+def hold_backward(got, ref, what):
+    """(d_value, d_loc, d_weights) against the plain backward's within
+    BWD_TOL: {name: (max_abs_err, max |x|)}; raises naming any outside it."""
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    for name, got_t, want_t in zip(('d_value', 'd_loc', 'd_weights'), got,
+                                   ref):
+        got_f, want_f = got_t.float(), want_t.float()
+        scale = want_f.abs().max().item()
+        rtol, atol_share = BWD_TOL[name]
+        errs[name] = ((got_f - want_f).abs().max().item(), scale)
+        if not torch.allclose(got_f, want_f, rtol=rtol,
+                              atol=atol_share * scale):
+            failures.append(name)
+    if failures:
+        raise AssertionError(f'{what}: backward kernels disagree on '
+                             f'{failures} (max_abs_err, max |x|: {errs})')
+    return errs
 
 
 def tiny_model_card_vs_cpu(dev):
@@ -430,16 +463,18 @@ def launch_breakdown(fn, reps=20):
     return sorted(((k, v / reps) for k, v in ms.items()), key=lambda kv: -kv[1])
 
 
-def composite_backward(value, shapes, loc, weights, grad_out):
+def composite_backward(value, shapes, loc, weights, grad_out, d_value=True):
     """Yardstick: autograd's backward of the grid_sample composite (value,
-    loc and weights gradients in f32), the forward taken once outside."""
+    loc and weights gradients in f32; without d_value, loc and weights
+    alone, msda_dattn's function), the forward taken once outside."""
     with torch.enable_grad():
-        v = value.float().requires_grad_()
+        v = value.float().requires_grad_(d_value)
         l = loc.clone().requires_grad_()
         w = weights.clone().requires_grad_()
         out = grid_sample_msda(v, shapes, l, w)
     g = grad_out.float()
-    return lambda: torch.autograd.grad(out, (v, l, w), g, retain_graph=True)
+    wrt = (v, l, w) if d_value else (l, w)
+    return lambda: torch.autograd.grad(out, wrt, g, retain_graph=True)
 
 
 def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -523,28 +558,22 @@ def train_main_path(cfg, card):
 
 def backward_check(value, shapes, loc, weights, grad_out):
     """Phase 10: each backward kernel against the plain backward (BWD_TOL);
-    two msda_dval runs must be bitwise equal, and whether two msda_dattn
-    runs are is reported."""
+    two msda_dval runs must be bitwise equal, and so must two msda_dattn
+    runs (d_loc and d_weights)."""
     d_value = msda_cuda.msda_dval(value, shapes, loc, weights, grad_out)
     d_loc, d_weights = msda_cuda.msda_dattn(value, shapes, loc, weights,
                                             grad_out)
-    torch.cuda.synchronize()
     ref = msda_backward_reference(value, shapes, loc, weights, grad_out)
-    errs, failures = {}, []
-    for name, got_t, want_t in zip(('d_value', 'd_loc', 'd_weights'),
-                                   (d_value, d_loc, d_weights), ref):
-        got_f, want_f = got_t.float(), want_t.float()
-        scale = want_f.abs().max().item()
+    errs = {}
+    for (name, (err, scale)), got_t in zip(
+            hold_backward((d_value, d_loc, d_weights), ref,
+                          'training operands').items(),
+            (d_value, d_loc, d_weights)):
         rtol, atol_share = BWD_TOL[name]
-        errs[name] = (got_f - want_f).abs().max().item()
-        ok = torch.allclose(got_f, want_f, rtol=rtol, atol=atol_share * scale)
+        errs[name] = err
         log(f'  {name} {tuple(got_t.shape)} {got_t.dtype}: max_abs_err '
-            f'{errs[name]:.3e}, max |x| {scale:.3e} (rtol {rtol}, atol '
-            f'{atol_share} x max |x|): {"ok" if ok else "FAIL"}')
-        if not ok:
-            failures.append(name)
-    if failures:
-        raise AssertionError(f'backward kernels disagree: {failures}')
+            f'{err:.3e}, max |x| {scale:.3e} (rtol {rtol}, atol '
+            f'{atol_share} x max |x|): ok')
     d_value2 = msda_cuda.msda_dval(value, shapes, loc, weights, grad_out)
     d_loc2, d_weights2 = msda_cuda.msda_dattn(value, shapes, loc, weights,
                                               grad_out)
@@ -556,6 +585,8 @@ def backward_check(value, shapes, loc, weights, grad_out):
         f'{rerun:.3e}); two msda_dattn runs bitwise equal: {dattn_bitwise}')
     if not dval_bitwise:
         raise AssertionError('two msda_dval runs on the same operands differ')
+    if not dattn_bitwise:
+        raise AssertionError('two msda_dattn runs on the same operands differ')
     return dict(errs=errs, ref=ref, dval_bitwise=dval_bitwise,
                 dval_rerun_diff=rerun, dattn_bitwise=dattn_bitwise)
 
@@ -582,6 +613,13 @@ def backward_times(value, shapes, loc, weights, grad_out, ref, card):
     grads = comp()
     lib_err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(grads[1:], ref[1:]))
+    del grads, comp
+    comp = composite_backward(*args, d_value=False)
+    t['dattn_library_ms'] = device_ms(comp, 5)
+    grads = comp()
+    dattn_lib_err = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(grads, ref[1:]))
+    del grads, comp
     dval_bytes, dval_flops, dattn_bytes, dattn_flops, counts = \
         backward_needs(value, shapes, loc, weights)
     t['dval_bound'], t['dval_by'] = bound(dval_bytes, dval_flops)
@@ -601,7 +639,9 @@ def backward_times(value, shapes, loc, weights, grad_out, ref, card):
         f'30); msda_dattn {t["dattn_ms"]:.4f} / {t["dattn_cold"]:.4f} ms; '
         f'plain backward (all three gradients) {t["plain_ms"]:.4f} ms; '
         f'grid_sample composite backward {t["library_ms"]:.4f} ms (its '
-        f'd_loc / d_weights max_abs_err {lib_err:.3e}) [{card}]')
+        f'd_loc / d_weights max_abs_err {lib_err:.3e}), for loc and weights '
+        f'alone {t["dattn_library_ms"]:.4f} ms (max_abs_err '
+        f'{dattn_lib_err:.3e}) [{card}]')
     log(f'  counts: {counts} of {value.shape[0] * value.shape[1]} value rows, '
         f'{loc.shape[0] * loc.shape[1]} (camera, query) pairs, '
         f'{loc.shape[0] * loc.shape[1] * loc.shape[2] * len(shapes)} points')
@@ -1063,7 +1103,10 @@ def main():
         'ms_cold_l2': times['dattn_cold'],
         'plain_ms': times['plain_ms'], 'plain': bwd_plain,
         'bound_ms': times['dattn_bound'], 'bound_by': times['dattn_by'],
-        'library_ms': times['library_ms'], 'library': bwd_lib,
+        'library_ms': times['dattn_library_ms'],
+        'library': 'backward of F.grid_sample per level + einsum (composite, '
+                   'f32), loc and weights gradients only',
+        'library_all_grads_ms': times['library_ms'],
     }, {
         'name': 'osa_fused', **common,
         'source': 'far3d_tpu_torch/csrc/osa_fused.cu',

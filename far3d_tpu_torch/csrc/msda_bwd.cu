@@ -65,17 +65,45 @@
 // No float atomics, no f32 copy of d_value, no memset of it; every sum runs in an
 // order fixed by the operands, so two calls give bitwise equal d_value.
 //
-// msda_dattn gives one warp to each (camera, query, point) and walks the
-// levels. Lane i owns VEC consecutive channels (VEC = 8 for C = 256), so a
-// channel group (C/G channels) is a power-of-two run of lanes and a corner
-// row is one contiguous read across the warp. For each level the warp
-// computes the four corners (uniform over the warp), skips the level before
-// any value load when no corner is in bounds, else dots each valid corner's
-// row with the gradient, reduces the attention-weight gradient over the
-// group's lanes and the corner gradients over the warp with shuffles, and
-// accumulates d_loc in registers. d_loc is written once per (camera, query,
-// point) and d_weights once per (group, level, point): no atomics, so both
-// are bitwise reproducible.
+// msda_dattn (replaces `msda_dattn_kernel` and `_backward`'s chain rule, as
+// above) is bound by bytes too, but what it reads is far more than its
+// bound counts: every valid corner re-reads a C-wide value row from L2
+// (516,051 rows, about 264 MB a call at the training shape, against the
+// 45 MB of distinct rows, weights, loc and outputs), so the rate at which
+// L2 feeds the SMs sets its time. A block of kDattnWarps warps takes
+// kDattnPairs consecutive (camera, query) pairs, in three steps:
+//  1. A thread per (pair, point) computes the corners of every level and
+//     tests validity, not weight (see above). The points with a valid
+//     corner are listed in shared memory with their valid corners (4 bits a
+//     level), and per level the first corner's row and dx, dy. A point
+//     without one, most of them (78% of the pairs at the training shape
+//     have none), reads its loc and nothing else: no gradient row, weight
+//     or value row.
+//  2. Warps take the listed points. Lane i owns VEC consecutive channels
+//     (VEC = 8 at C = 256, G = 8: a 16-byte load a lane, a 512-byte row a
+//     warp; a group is a power-of-two run of lanes). A warp starts the
+//     loads of the gradient row, the attention weights of the levels with
+//     a valid corner and every valid corner row of LR levels before it uses
+//     any: two levels a round in bf16 at 16 bytes a lane (up to 8 rows in
+//     flight a lane), one in f32 at VEC = 8. It then dots each row with the
+//     gradient over its channels and folds the corners into the lane's
+//     d_weights partial per level and its d_loc partial; group shuffles
+//     reduce d_weights once a round, a full-warp reduction reduces d_loc
+//     once a point. Two rounds, not one: with all four levels' rows in
+//     flight a thread needs about 128 registers and a SM holds 16 warps; at
+//     64 it holds 32, which hides more of the L2 latency (PERF.md §6).
+//     At VEC = 16 in f32 one level's rows pass the 64 registers and spill;
+//     the model's shapes do not take that path.
+//  3. The block's d_weights (pairs x G*L*P f32, zero for every point
+//     without a hit) and d_loc are staged in shared memory and written as
+//     whole lines.
+// Compared with a warp per (camera, query, point) walking the levels, a
+// warp waits on two rounds of loads, not five dependent ones, rows
+// move as 16-byte words, d_weights is not stored 4 bytes at a time, and a
+// point without a hit costs a few instructions of a thread, not a warp
+// reading a gradient row. Each valid corner still reads its row from L2.
+// No float atomics; each point is summed by one warp in a fixed order, so
+// two calls give bitwise equal d_loc and d_weights.
 
 #include "msda_common.cuh"
 
@@ -85,20 +113,6 @@ using msda::Corners;
 using msda::corners;
 using msda::Levels;
 using msda::make_levels;
-
-template <typename T> struct Pair;
-
-template <> struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
-  }
-};
-
-template <> struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
 
 // ---------------------------------------------------------------- msda_dval
 
@@ -371,111 +385,246 @@ int launch_dval(int vec, int num_chunks, cudaStream_t s, const void* grad_out,
 
 // --------------------------------------------------------------- msda_dattn
 
+constexpr int kDattnWarps = 8;  // warps a block of msda_dattn
+// (camera, query) pairs a block of msda_dattn takes (fewer where their
+// shared memory would pass 48 KB): its threads test their points' corners,
+// its warps share the points that hit.
+constexpr int kDattnPairs = 4;
+// __launch_bounds__' minimum: 4 blocks of 256 threads cap a thread at 64
+// registers, so a SM holds 32 warps
+constexpr int kDattnBlocksPerSm = 4;
+// 4-byte words of value rows a lane holds in flight: 32 is the corner rows
+// of two levels in bf16 at 16 bytes a lane, so four levels take two rounds
+constexpr int kDattnLoadWords = 32;
+
+// Shared-memory words of a block of msda_dattn over `pairs` pairs of
+// num_points points and num_levels levels: d_weights (pairs * G*L*P), d_loc
+// (pairs * P * 2), and the list of points with a valid corner: the point,
+// its valid corners (bit 4 * l + k) and, per level, the first corner's row
+// and dx, dy (pairs * P * (2 + 3 * L)); and the list's length.
+__host__ __device__ inline int dattn_words(int pairs, int glp, int num_points,
+                                           int num_levels) {
+  return pairs * (glp + num_points * (4 + 3 * num_levels)) + 1;
+}
+
+// g . row over a lane's VEC channels (both as words of T), one fmaf a
+// channel in order.
 template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[VEC]) {
+__device__ __forceinline__ float dot_words(
+    const unsigned (&g)[msda::words<T, VEC>()],
+    const unsigned (&u)[msda::words<T, VEC>()]) {
+  float t = 0.f;
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int k = 0; k < VEC; k += 2) {
-    const float2 v = Pair<T>::load(p + k);
-    out[k] = v.x;
-    out[k + 1] = v.y;
+    for (int k = 0; k < VEC / 2; ++k) {
+      const float2 a = msda::unpack_bf16x2(g[k]);
+      const float2 b = msda::unpack_bf16x2(u[k]);
+      t = fmaf(a.x, b.x, t);
+      t = fmaf(a.y, b.y, t);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      t = fmaf(__uint_as_float(g[k]), __uint_as_float(u[k]), t);
   }
+  return t;
 }
 
 // value (B, rows, C) and grad_out (B, Q, C) in T; loc (B, Q, P, 2) f32;
-// weights (B, Q, G, L, P) f32 -> d_loc (B, Q, P, 2) f32 and
-// d_weights (B, Q, G, L, P) f32, every element written.
-// Block (32, warps per block); one warp per (b, q, p); lane i owns channels
-// [i*VEC, i*VEC + VEC), lanes at or past C/VEC idle but join the shuffles.
+// weights (B, Q, G, L, P) f32 -> d_loc (B, Q, P, 2) f32 and d_weights
+// (B, Q, G, L, P) f32, every element written. Block kDattnWarps * 32
+// threads over pairs [blockIdx.x * pairs_per_block, + pairs_per_block) of
+// the num_pairs = B * Q; lanes at or past C / VEC join the shuffles with
+// zeros.
 template <typename T, int VEC>
-__global__ void msda_dattn_kernel(const T* __restrict__ value,
-                                  const T* __restrict__ grad_out,
-                                  const float* __restrict__ loc,
-                                  const float* __restrict__ weights,
-                                  float* __restrict__ d_loc,
-                                  float* __restrict__ d_weights, Levels lv,
-                                  long long num_items, int num_query,
-                                  int num_points, int num_groups,
-                                  int channels, int rows) {
+__global__ void __launch_bounds__(kDattnWarps * 32, kDattnBlocksPerSm)
+msda_dattn_kernel(const T* __restrict__ value, const T* __restrict__ grad_out,
+                  const float* __restrict__ loc,
+                  const float* __restrict__ weights, float* __restrict__ d_loc,
+                  float* __restrict__ d_weights, Levels lv, int num_pairs,
+                  int pairs_per_block, int num_query, int num_points,
+                  int num_groups, int channels, int rows) {
+  constexpr int N = msda::words<T, VEC>();
+  // levels whose corner rows a lane holds in one round
+  constexpr int LR = kDattnLoadWords / (4 * N) < 1 ? 1
+      : (kDattnLoadWords / (4 * N) > 4 ? 4 : kDattnLoadWords / (4 * N));
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x;
-  const long long item = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (item >= num_items) return;               // uniform over the warp
-  const int p = (int)(item % num_points);
-  const long long bq = item / num_points;      // b * Q + q
-  const int b = (int)(bq / num_query);
+  extern __shared__ int smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int np = num_points;
+  const int glp = num_groups * lv.n * np;
+  const int pair0 = blockIdx.x * pairs_per_block;
+  const int pairs = min(pairs_per_block, num_pairs - pair0);
+  const int pts = pairs * np;
+  const int cap = pairs_per_block * np;           // list entries
+  float* dw_s = reinterpret_cast<float*>(smem);
+  float* dl_s = dw_s + pairs_per_block * glp;
+  int* list_t = reinterpret_cast<int*>(dl_s + cap * 2);
+  unsigned* list_valid = reinterpret_cast<unsigned*>(list_t + cap);
+  int* list_row = reinterpret_cast<int*>(list_valid + cap);   // [l][entry]
+  float* list_dx = reinterpret_cast<float*>(list_row + lv.n * cap);
+  float* list_dy = list_dx + lv.n * cap;
+  int* count = reinterpret_cast<int*>(list_dy + lv.n * cap);
+
+  // 1. a thread per (pair, point): the corners of every level; the points
+  // with a valid corner are listed with their corners
+  if (tid == 0) *count = 0;
+  for (int i = tid; i < pts * 2; i += blockDim.x) dl_s[i] = 0.f;
+  for (int i = tid; i < pairs * glp; i += blockDim.x) dw_s[i] = 0.f;
+  __syncthreads();
+  for (int base = 0; base < pts; base += blockDim.x) {   // uniform
+    const int t = base + tid;
+    unsigned valid = 0;
+    int row[MSDA_MAX_LEVELS];
+    float dx[MSDA_MAX_LEVELS], dy[MSDA_MAX_LEVELS];
+    if (t < pts) {
+      const float2 uv = __ldg(reinterpret_cast<const float2*>(loc) +
+                              pair0 * np + t);
+#pragma unroll
+      for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+        if (l < lv.n) {
+          const Corners c = corners(uv.x, uv.y, lv.h[l], lv.w[l]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) valid |= (unsigned)c.valid[k] << (4 * l + k);
+          row[l] = lv.start[l] + c.row[0];
+          dx[l] = c.dx;
+          dy[l] = c.dy;
+        }
+      }
+    }
+    const unsigned hit = __ballot_sync(full, valid != 0);
+    int slot = 0;
+    if (lane == 0 && hit) slot = atomicAdd(count, __popc(hit));
+    slot = __shfl_sync(full, slot, 0) + __popc(hit & ((1u << lane) - 1u));
+    if (valid) {
+      list_t[slot] = t;
+      list_valid[slot] = valid;
+#pragma unroll
+      for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+        if (l < lv.n) {
+          list_row[l * cap + slot] = row[l];
+          list_dx[l * cap + slot] = dx[l];
+          list_dy[l * cap + slot] = dy[l];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. a warp per listed point
+  const int n = *count;
   const int ch0 = lane * VEC;
   const bool active = ch0 < channels;
   const int group_ch = channels / num_groups;
-  const int group_lanes = group_ch / VEC;      // a power of two
+  const int group_lanes = group_ch / VEC;        // a power of two
   const int g = active ? ch0 / group_ch : 0;
-
-  float go[VEC];
-  if (active) {
-    load_vec<T, VEC>(grad_out + bq * channels + ch0, go);
-  } else {
+  for (int i = warp; i < n; i += kDattnWarps) {
+    const int t = list_t[i];
+    // the valid corners this lane loads: none where it holds no channel
+    const unsigned valid = active ? list_valid[i] : 0u;
+    const int j = t / np;
+    const int p = t - j * np;
+    const int bq = pair0 + j;
+    const T* vb = value + (size_t)(bq / num_query) * rows * channels + ch0;
+    const float* wq = weights + (size_t)(bq * num_groups + g) * lv.n * np + p;
+    unsigned gw[N];
+    if (active) msda::load_words(grad_out + (size_t)bq * channels + ch0, gw);
+    float dlx = 0.f, dly = 0.f;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) go[k] = 0.f;
-  }
-  const float u = __ldg(loc + (bq * num_points + p) * 2);
-  const float v = __ldg(loc + (bq * num_points + p) * 2 + 1);
-  const float* wq = weights + (bq * num_groups + g) * lv.n * num_points + p;
-  float* dwq = d_weights + (bq * num_groups + g) * lv.n * num_points + p;
-  const T* vb = value + (size_t)b * rows * channels + ch0;
-
-  float dlx = 0.f, dly = 0.f;
-  for (int l = 0; l < lv.n; ++l) {
-    const Corners c = corners(u, v, lv.h[l], lv.w[l]);
-    float dw = 0.f;
-    if (c.valid[0] || c.valid[1] || c.valid[2] || c.valid[3]) {
-      const T* vl = vb + (size_t)lv.start[l] * channels;
-      float t[4];                              // g . value[corner] over my channels
+    for (int l0 = 0; l0 < MSDA_MAX_LEVELS; l0 += LR) {
+      if (l0 >= lv.n) break;                      // uniform over the warp
+      unsigned vals[LR][4][N];
+      float a[LR];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        t[k] = 0.f;
-        if (c.valid[k] && active) {
-          float val[VEC];
-          load_vec<T, VEC>(vl + (size_t)c.row[k] * channels, val);
+      for (int r = 0; r < LR; ++r) {              // start every load
+        const int l = l0 + r;
+        a[r] = 0.f;
+        if (valid >> (4 * l) & 0xfu) {            // l < L: no bits past it
+          a[r] = __ldg(wq + l * np);
+          const int row0 = list_row[l * cap + i];
+          const int row[4] = {row0, row0 + 1, row0 + lv.w[l], row0 + lv.w[l] + 1};
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) t[k] = fmaf(go[e], val[e], t[k]);
+          for (int k = 0; k < 4; ++k) {
+            if (valid >> (4 * l + k) & 1u)
+              msda::load_words(vb + (size_t)row[k] * channels, vals[r][k]);
+          }
         }
       }
-      const float a = active ? __ldg(wq + l * num_points) : 0.f;
-      dw = c.w[0] * t[0] + c.w[1] * t[1] + c.w[2] * t[2] + c.w[3] * t[3];
-      // d bw / d dx and d dy of the four corners (zero where invalid: t = 0)
-      const float ddx = a * ((1.f - c.dy) * (t[1] - t[0]) + c.dy * (t[3] - t[2]));
-      const float ddy = a * ((1.f - c.dx) * (t[2] - t[0]) + c.dx * (t[3] - t[1]));
-      for (int off = 1; off < group_lanes; off <<= 1)
-        dw += __shfl_xor_sync(full, dw, off);
-      float sx = ddx, sy = ddy;
+      float dw[LR];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sx += __shfl_xor_sync(full, sx, off);
-        sy += __shfl_xor_sync(full, sy, off);
+      for (int r = 0; r < LR; ++r) {              // then use them
+        const int l = l0 + r;
+        dw[r] = 0.f;
+        if (valid >> (4 * l) & 0xfu) {
+          const float dx = list_dx[l * cap + i], dy = list_dy[l * cap + i];
+          float tk[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            tk[k] = valid >> (4 * l + k) & 1u
+                        ? dot_words<T, VEC>(gw, vals[r][k]) : 0.f;
+          }
+          // the bilinear weights as corners() computes them
+          const float ex = 1.f - dx, ey = 1.f - dy;
+          dw[r] = (valid >> (4 * l) & 1u ? ey * ex : 0.f) * tk[0] +
+                  (valid >> (4 * l + 1) & 1u ? ey * dx : 0.f) * tk[1] +
+                  (valid >> (4 * l + 2) & 1u ? dy * ex : 0.f) * tk[2] +
+                  (valid >> (4 * l + 3) & 1u ? dy * dx : 0.f) * tk[3];
+          // d bw / d dx and d dy of the four corners (tk = 0 where invalid),
+          // times d dx / d u = W and d dy / d v = H
+          const float ddx = a[r] * (ey * (tk[1] - tk[0]) + dy * (tk[3] - tk[2]));
+          const float ddy = a[r] * (ex * (tk[2] - tk[0]) + dx * (tk[3] - tk[1]));
+          dlx += ddx * (float)lv.w[l];
+          dly += ddy * (float)lv.h[l];
+        }
       }
-      dlx += sx * (float)lv.w[l];              // d dx / d u = W
-      dly += sy * (float)lv.h[l];              // d dy / d v = H
+#pragma unroll
+      for (int r = 0; r < LR; ++r) {
+        for (int off = 1; off < group_lanes; off <<= 1)
+          dw[r] += __shfl_xor_sync(full, dw[r], off);
+      }
+      if (active && (lane & (group_lanes - 1)) == 0) {
+#pragma unroll
+        for (int r = 0; r < LR; ++r) {
+          const int l = l0 + r;
+          if (l < lv.n) dw_s[j * glp + (g * lv.n + l) * np + p] = dw[r];
+        }
+      }
     }
-    if (active && (lane % group_lanes) == 0) dwq[l * num_points] = dw;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      dlx += __shfl_xor_sync(full, dlx, off);
+      dly += __shfl_xor_sync(full, dly, off);
+    }
+    if (lane == 0) {
+      dl_s[2 * t] = dlx;
+      dl_s[2 * t + 1] = dly;
+    }
   }
-  if (lane == 0) {
-    *reinterpret_cast<float2*>(d_loc + (bq * num_points + p) * 2) =
-        make_float2(dlx, dly);
-  }
+  __syncthreads();
+
+  // 3. the block's d_weights and d_loc as whole lines
+  float* dwo = d_weights + (size_t)pair0 * glp;
+  for (int i = tid; i < pairs * glp; i += blockDim.x) dwo[i] = dw_s[i];
+  float* dlo = d_loc + (size_t)pair0 * np * 2;
+  for (int i = tid; i < pts * 2; i += blockDim.x) dlo[i] = dl_s[i];
 }
 
 template <typename T>
-int launch_dattn(int vec, dim3 grid, dim3 block, cudaStream_t s,
+int launch_dattn(int vec, dim3 grid, size_t smem, cudaStream_t s,
                  const void* value, const void* grad_out, const float* loc,
                  const float* weights, float* d_loc, float* d_weights,
-                 const Levels& lv, long long items, int num_query,
-                 int num_points, int num_groups, int channels, int rows) {
+                 const Levels& lv, int num_pairs, int pairs_per_block,
+                 int num_query, int num_points, int num_groups, int channels,
+                 int rows) {
   const T* v = static_cast<const T*>(value);
   const T* g = static_cast<const T*>(grad_out);
 #define MSDA_DATTN_CASE(N)                                                    \
   case N:                                                                     \
-    msda_dattn_kernel<T, N><<<grid, block, 0, s>>>(                           \
-        v, g, loc, weights, d_loc, d_weights, lv, items, num_query,           \
-        num_points, num_groups, channels, rows);                              \
+    msda_dattn_kernel<T, N><<<grid, kDattnWarps * 32, smem, s>>>(             \
+        v, g, loc, weights, d_loc, d_weights, lv, num_pairs, pairs_per_block, \
+        num_query, num_points, num_groups, channels, rows);                   \
     break;
   switch (vec) {
     MSDA_DATTN_CASE(2)
@@ -581,7 +730,7 @@ extern "C" int msda_dval_reduce(const void* grad_out, const void* weights,
 
 // d_loc (B, Q, P, 2) f32 and d_weights (B, Q, G, L, P) f32; vec is the
 // channels a lane owns (2, 4, 8 or 16; C / vec <= 32 and (C / G) / vec a
-// power of two).
+// power of two); refused where one pair's shared memory would pass 48 KB.
 extern "C" int msda_dattn(const void* value, const void* grad_out,
                           const void* loc, const void* weights, void* d_loc,
                           void* d_weights, int value_is_bf16, int vec,
@@ -590,30 +739,39 @@ extern "C" int msda_dattn(const void* value, const void* grad_out,
                           const void* level_hw, int rows, void* stream) {
   Levels lv;
   if (!make_levels(num_levels, level_hw, rows, &lv) || vec < 2 ||
-      channels % vec != 0 || channels / vec > 32 ||
-      (channels / num_groups) % vec != 0) {
+      channels % vec != 0 || channels / vec > 32 || num_groups < 1 ||
+      (channels / num_groups) % vec != 0 || num_points < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int group_lanes = channels / num_groups / vec;
   if (group_lanes < 1 || (group_lanes & (group_lanes - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long items = (long long)batch * num_query * num_points;
-  if (items == 0) return 0;
-  const int warps = 8;
-  dim3 block(32, warps);
-  dim3 grid((unsigned)((items + warps - 1) / warps));
+  const long long pairs = (long long)batch * num_query;
+  const long long glp = (long long)num_groups * num_levels * num_points;
+  if (pairs * glp > 0x7fffffffLL || pairs * num_points * 2 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (pairs == 0) return 0;
+  const int max_words = 48 * 1024 / (int)sizeof(int);
+  int per_block = kDattnPairs;
+  while (per_block > 1 && dattn_words(per_block, (int)glp, num_points, num_levels) > max_words)
+    --per_block;
+  if (dattn_words(per_block, (int)glp, num_points, num_levels) > max_words)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dattn_words(per_block, (int)glp, num_points, num_levels) * sizeof(int);
+  dim3 grid((unsigned)((pairs + per_block - 1) / per_block));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(loc);
   const float* w = static_cast<const float*>(weights);
   float* dl = static_cast<float*>(d_loc);
   float* dw = static_cast<float*>(d_weights);
   if (value_is_bf16) {
-    return launch_dattn<__nv_bfloat16>(vec, grid, block, s, value, grad_out,
-                                       l, w, dl, dw, lv, items, num_query,
-                                       num_points, num_groups, channels, rows);
+    return launch_dattn<__nv_bfloat16>(vec, grid, smem, s, value, grad_out, l,
+                                       w, dl, dw, lv, (int)pairs, per_block,
+                                       num_query, num_points, num_groups,
+                                       channels, rows);
   }
-  return launch_dattn<float>(vec, grid, block, s, value, grad_out, l, w, dl,
-                             dw, lv, items, num_query, num_points, num_groups,
-                             channels, rows);
+  return launch_dattn<float>(vec, grid, smem, s, value, grad_out, l, w, dl, dw,
+                             lv, (int)pairs, per_block, num_query, num_points,
+                             num_groups, channels, rows);
 }

@@ -197,7 +197,9 @@ def msda_dattn(value: torch.Tensor,
                loc: torch.Tensor,
                weights: torch.Tensor,
                grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d_loc (B, Q, P, 2) f32, d_weights (B, Q, G, L, P) f32)."""
+    """(d_loc (B, Q, P, 2) f32, d_weights (B, Q, G, L, P) f32), bitwise
+    repeatable: each point that has an in-bounds corner is summed by one
+    warp in a fixed order, every other point's entries are zeros."""
     vec = _check(DATTN, value, spatial_shapes, loc, weights, grad_out)
     b, rows, c = value.shape
     _, q, p, _ = loc.shape

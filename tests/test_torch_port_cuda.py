@@ -75,12 +75,15 @@ def test_cuda_backward_matches_reference(case, cuda_device):
     sum terms that cancel into large location gradients, so there atol is a
     share of each tensor's largest entry: production_like (256 channels x 4
     corners x 4 levels; d_loc up to 854, the plain f32 backward alone 7.1e-4
-    = 8e-7 of that from an f64 one) 4e-6, rows_past_int16 (maps 240 wide;
-    d_loc up to 1,320, the plain f32 backward 1.0e-2 = 8e-6 of that) 5e-5."""
+    = 8e-7 of that from an f64 one) 4e-6, sparse_pairs (the same widths;
+    d_loc up to 1,053, the kernels 1.2e-4 = 1.2e-7 of that from the plain
+    backward on an H100) 5e-7, rows_past_int16 (maps 240 wide; d_loc up to
+    1,320, the plain f32 backward 1.0e-2 = 8e-6 of that) 5e-5."""
     v, shapes, l, w, g = _backward_case(case, cuda_device)
     got = _kernel_grads(v, shapes, l, w, g)
     want = msda_backward_reference(v, shapes, l, w, g)
-    share = {'production_like': 4e-6, 'rows_past_int16': 5e-5}.get(case)
+    share = {'production_like': 4e-6, 'sparse_pairs': 5e-7,
+             'rows_past_int16': 5e-5}.get(case)
     for name, a, b in zip(('d_value', 'd_loc', 'd_weights'), got, want):
         atol = share * b.abs().max().item() if share else 1e-5
         torch.testing.assert_close(a, b, rtol=1e-5, atol=atol, msg=name)
@@ -122,6 +125,37 @@ def test_cuda_dval_is_bitwise_repeatable(case, dtype, cuda_device):
            else dict(rtol=1e-2, atol=1e-3))
     torch.testing.assert_close(
         first, msda_backward_reference(v, shapes, l, w, g)[0], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['crowded', 'production_like',
+                                  'rows_past_int16', 'sparse_pairs'])
+def test_cuda_dattn_is_bitwise_repeatable(case, dtype, cuda_device):
+    """No float atomics: each point with an in-bounds corner is summed by one
+    warp in a fixed order, whichever warp takes it. A second call also finds
+    other memory in the pool (every output element must be written). Held
+    to the plain backward as well: both sum in f32 (from the same bf16
+    inputs in bf16), rtol and atol 1e-5 in f32 as in
+    test_cuda_backward_matches_reference and 1e-4 in bf16 as in
+    test_cuda_backward_bf16_value; where the location gradients cancel
+    into large sums, atol at least a share of the largest entry: 4e-6 at
+    the model's widths (production_like, sparse_pairs; the bf16 inputs as
+    well), 5e-5 at rows_past_int16."""
+    v, shapes, l, w, g = _backward_case(case, cuda_device, dtype)
+    d_loc, d_weights = msda_cuda.msda_dattn(v, shapes, l, w, g)
+    junk = torch.full((64, 2**20), 7.0, device=cuda_device)   # dirty the pool
+    del junk
+    d_loc2, d_weights2 = msda_cuda.msda_dattn(v, shapes, l, w, g)
+    torch.cuda.synchronize()
+    assert torch.equal(d_loc, d_loc2) and torch.equal(d_weights, d_weights2)
+    want = msda_backward_reference(v, shapes, l, w, g)[1:]
+    share = {'production_like': 4e-6, 'sparse_pairs': 4e-6,
+             'rows_past_int16': 5e-5}.get(case, 0.)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    for name, a, b in zip(('d_loc', 'd_weights'), (d_loc, d_weights), want):
+        atol = max(tol, share * b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=tol, atol=atol, msg=name)
 
 
 @pytest.mark.cuda
