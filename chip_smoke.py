@@ -61,7 +61,21 @@ Phases, each raising on failure:
      flush), the plain version, the same folded function through cuDNN and
      one matmul (yardstick only, never called by the port), the model's own
      unfused conv / BN / ReLU chain, and the bound from the block's
-     operations and bytes.
+     operations and bytes;
+ 16. the fourth main path, from a dataset on disk to the AV2 metrics at full
+     Far3DConfig() width, in a temporary directory: the full-size learnable
+     dataset (2 scenes x 4 frames, 7 native AV2 cameras, PNG) written;
+     TrainLoader (8 threads) feeding run_training for 6 steps with GT depth
+     for steps 0-2, log_every 1 and checkpoint_every 4: the steps seen, 6
+     finite metrics lines, saves at steps 1, 4 and (forced) 6 with only 6
+     kept; step 6 restored into a fresh state and held bitwise against the
+     live one; a resume to step 8; each MSDA kernel launched 6 times a step;
+     4 more steps from batches taken from the loader first, so that its
+     threads are idle while they run;
+     EvalLoader over the 8 frames feeding run_inference (uint8 frames
+     uploaded ahead, msda_fwd 6 times a frame) and collect_and_evaluate
+     (finite mAP and CDS); the loader's host ms a frame and its warp's,
+     ms/step and the wait on the loader, eval ms/frame and peak memory.
 Then it prints one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
@@ -71,10 +85,12 @@ comparison here is a full-f32 one; the main path's image side is bf16.
 
 import dataclasses
 import importlib
+import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,20 +99,35 @@ import torch
 import torch.nn.functional as F
 
 from far3d_tpu_torch.config import Far3DConfig, tiny_test_config
+from far3d_tpu_torch.data import pipeline
+from far3d_tpu_torch.data.av2_dataset import AV2SequenceDataset
+from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
 from far3d_tpu_torch.entry import build_model, entry, run_frame, train_entry
+from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
 from far3d_tpu_torch.models.farhead import init_state
 from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
                                         step_from_noise, train_step)
-from far3d_tpu_torch.utils.synthetic import inference_inputs, synthetic_batch
+from far3d_tpu_torch.train import runner
+from far3d_tpu_torch.utils.checkpoint import CheckpointManager
+from far3d_tpu_torch.utils.convert import init_state_dict
+from far3d_tpu_torch.utils.synthetic import (inference_inputs,
+                                             make_learnable_dataset_fullsize,
+                                             synthetic_batch)
 
 FRAMES = 8                     # streaming frames on the main path
 LAYERS_PER_FRAME = 6           # one MSDA launch per decoder layer
 TRAIN_STEPS = 6                # full-width training steps
 OVERFIT_STEPS = 30
 OSA_BLOCKS = 8                 # OSA4_2 .. OSA4_9, the identity blocks of stage 4
+DATA_SCENES, DATA_FRAMES = 2, 4    # the dataset of phase 16: 8 frames
+DATA_STEPS = 6                 # run_training's first run, then a resume to
+DATA_RESUME_STEPS = 8
+DATA_GT_DEPTH_UNTIL = 3        # steps 0-2 with GT depth, 3-7 without
+DATA_SAVE_EVERY = 4            # a save at step 4, a forced one at step 6
+DATA_IDLE_STEPS = 4            # then steps 8-11 with the loader idle
 # The eight fused blocks against the model's own modules: the model rounds
 # each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
 # kernel applies it in f32 on the f32 sum and rounds once, so each of a
@@ -860,6 +891,214 @@ def osa_times(module, x_in, operands, sh, card):
     return t
 
 
+def states_equal(a, b):
+    """Whether two train states are bitwise equal: step, every parameter and
+    buffer, and each parameter's Adam step count and both moments."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer.state_dict()['state'], b.optimizer.state_dict()['state']
+    return (a.step == b.step and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and oa.keys() == ob.keys() and len(oa) > 0
+            and all(torch.equal(oa[i][k], ob[i][k]) for i in oa
+                    for k in ('step', 'exp_avg', 'exp_avg_sq')))
+
+
+class TimedFrames:
+    """An eval loader whose frames are stamped with the host clock as
+    run_inference asks for them; the gaps are the eval loop's ms a frame."""
+
+    def __init__(self, loader):
+        self.loader, self.pad, self.stamps = loader, loader.pad, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for frame in self.loader:
+            self.stamps.append(time.perf_counter())
+            yield frame
+
+
+def host_pipeline_ms(dataset, cfg, frames):
+    """Host ms of process_frame (decode, warp, GT, depth painting) a
+    7-camera frame on one loader thread, and of its warps, each the median
+    over `frames` training frames."""
+    warp_s = []
+    real_warp = pipeline.warp_affine_inverse
+
+    def timed_warp(*args):
+        t0 = time.perf_counter()
+        out = real_warp(*args)
+        warp_s[-1] += time.perf_counter() - t0
+        return out
+
+    total, warp = [], []
+    pipeline.warp_affine_inverse = timed_warp
+    try:
+        for i in range(frames):
+            warp_s.append(0.0)
+            t0 = time.perf_counter()
+            pipeline.process_frame(dataset.get_frame(i), cfg,
+                                   np.random.default_rng(i), train=True)
+            total.append((time.perf_counter() - t0) * 1e3)
+            warp.append(warp_s[-1] * 1e3)
+    finally:
+        pipeline.warp_affine_inverse = real_warp
+    return statistics.median(total), statistics.median(warp)
+
+
+def dataset_path(cfg, dev, card, workdir):
+    """Phase 16: the dataset-to-metric path at `cfg`'s width. Writes the
+    full-size learnable dataset (DATA_SCENES x DATA_FRAMES frames of 7
+    native AV2 cameras, PNG), trains DATA_STEPS steps from TrainLoader
+    through run_training across the GT-depth switch with a save at the
+    interval and a forced one at the end, restores the last checkpoint into
+    a fresh state and holds it bitwise against the live one, resumes to
+    DATA_RESUME_STEPS, and evaluates every frame through EvalLoader,
+    run_inference (uint8 frames uploaded ahead) and collect_and_evaluate."""
+    ann = str(workdir / 'infos.pkl')
+    t0 = time.perf_counter()
+    make_learnable_dataset_fullsize(ann, str(workdir), n_scenes=DATA_SCENES,
+                                    frames_per_scene=DATA_FRAMES)
+    n_frames = DATA_SCENES * DATA_FRAMES
+    log(f'  wrote {n_frames} frames x 7 cameras (2048x1550 front, 1550x2048 '
+        f'others, PNG) in {time.perf_counter() - t0:.1f} s')
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, use_gt_depth_until_iter=DATA_GT_DEPTH_UNTIL,
+        checkpoint_every=DATA_SAVE_EVERY, log_every=1, keep_checkpoints=1))
+    train_ds = AV2SequenceDataset(ann, str(workdir))
+    pipe_ms, warp_ms = host_pipeline_ms(train_ds, cfg, n_frames)
+    log(f'  loader host work: {pipe_ms:.1f} ms a 7-camera frame on one '
+        f'thread (median of {n_frames}), of which the warp {warp_ms:.1f} ms '
+        f'[{card}]')
+
+    steps, saves = [], []
+    real_step, real_save = runner.train_step, CheckpointManager.save
+
+    def recording_step(cfg, state, *args, use_gt_depth):
+        steps.append((state.step, use_gt_depth))
+        return real_step(cfg, state, *args, use_gt_depth=use_gt_depth)
+
+    save_s = []
+
+    def recording_save(self, step, state, force=False):
+        t0 = time.perf_counter()
+        wrote = real_save(self, step, state, force)
+        if wrote:
+            saves.append((step, force))
+            save_s.append(time.perf_counter() - t0)
+        return wrote
+
+    work = workdir / 'work'
+    loader = TrainLoader(train_ds, cfg, 1, num_threads=8)
+    runner.train_step, CheckpointManager.save = recording_step, recording_save
+    names = (msda_cuda.FWD, msda_cuda.DVAL, msda_cuda.DATTN)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _build.reset_launch_counts()
+        state = runner.run_training(cfg, loader, str(work), 1, resume=False,
+                                    max_iters=DATA_STEPS)
+        torch.cuda.synchronize()
+        lines = [json.loads(x) for x in
+                 (work / 'metrics.jsonl').read_text().splitlines()]
+        want_steps = [(i, i < DATA_GT_DEPTH_UNTIL) for i in range(DATA_STEPS)]
+        if steps != want_steps:
+            raise AssertionError(f'steps (index, GT depth) {steps}, expected '
+                                 f'{want_steps}')
+        if len(lines) != DATA_STEPS or not all(
+                np.isfinite(list(m.values())).all() for m in lines):
+            raise AssertionError(f'metrics.jsonl: {lines}')
+        want_saves = [(1, False), (DATA_SAVE_EVERY, False), (DATA_STEPS, True)]
+        kept = CheckpointManager(str(work)).all_steps()
+        if saves != want_saves or kept != [DATA_STEPS]:
+            raise AssertionError(f'saves {saves} (expected {want_saves}), '
+                                 f'kept {kept}')
+        ckpt_gb = (work / f'{DATA_STEPS}.pt').stat().st_size / 1e9
+        log(f'  {DATA_STEPS} steps, GT depth for steps 0..'
+            f'{DATA_GT_DEPTH_UNTIL - 1}; saved (step, forced) {saves}, kept '
+            f'{kept}; total_loss {lines[0]["total_loss"]:.4f} -> '
+            f'{lines[-1]["total_loss"]:.4f}; a checkpoint {ckpt_gb:.3f} GB, '
+            f'saved in {", ".join(f"{t:.2f}" for t in save_s)} s [{card}]')
+
+        fresh, _ = create_train_state(cfg, build_model(
+            cfg, dev, weights=init_state_dict(cfg, cfg.train.seed + 1)))
+        CheckpointManager(str(work)).restore(fresh)
+        if not states_equal(fresh, state):
+            raise AssertionError('the restored state differs from the live one')
+        del fresh
+        log(f'  step {DATA_STEPS} restored into a fresh state: every parameter '
+            'and buffer, both Adam moments and the step bitwise equal')
+
+        steps.clear()
+        state = runner.run_training(cfg, loader, str(work), 1, resume=True,
+                                    max_iters=DATA_RESUME_STEPS)
+        torch.cuda.synchronize()
+        resumed = [i for i, _ in steps]
+        if resumed != list(range(DATA_STEPS, DATA_RESUME_STEPS)) or \
+                state.step != DATA_RESUME_STEPS:
+            raise AssertionError(f'resume ran steps {resumed} to {state.step}')
+        train_launches = {k: _build.launch_counts[k] for k in names}
+        want = LAYERS_PER_FRAME * DATA_RESUME_STEPS
+        if any(v != want for v in train_launches.values()):
+            raise AssertionError(f'training launches {train_launches}, '
+                                 f'expected {want} of each')
+        log(f'  resumed at step {DATA_STEPS}, ended at {state.step}; launches '
+            f'in {DATA_RESUME_STEPS} steps {train_launches}')
+        # the same steps with the loader idle: batches taken from it first
+        batches = list(itertools.islice(iter(loader), DATA_IDLE_STEPS))
+        loader.stop()
+        state = runner.run_training(cfg, iter(batches), str(work), 1,
+                                    resume=True, max_iters=DATA_RESUME_STEPS
+                                    + DATA_IDLE_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        runner.train_step, CheckpointManager.save = real_step, real_save
+        loader.stop()
+    lines = [json.loads(x) for x in
+             (work / 'metrics.jsonl').read_text().splitlines()]
+    ms_step = statistics.median(m['time'] * 1e3 for m in lines[2:DATA_STEPS])
+    wait_ms = statistics.median(m['data_time'] * 1e3
+                                for m in lines[2:DATA_STEPS])
+    idle_ms = statistics.median(m['time'] * 1e3
+                                for m in lines[DATA_RESUME_STEPS + 1:])
+    log(f'  run_training: {ms_step:.2f} ms/step (median of steps 2..'
+        f'{DATA_STEPS - 1}), of which waiting on the loader\'s queue '
+        f'{wait_ms:.2f} ms (median) [{card}]; by step, ms (wait): '
+        + ', '.join(f'{m["time"] * 1e3:.1f} ({m["data_time"] * 1e3:.1f})'
+                    for m in lines))
+    log(f'  the same steps with the loader idle (batches taken from it '
+        f'first): {idle_ms:.2f} ms/step (median of steps '
+        f'{DATA_RESUME_STEPS + 1}..{DATA_RESUME_STEPS + DATA_IDLE_STEPS - 1}) '
+        f'[{card}]')
+
+    eval_ds = AV2SequenceDataset(ann, str(workdir), split='val',
+                                 seq_split_num=1)
+    frames = TimedFrames(EvalLoader(eval_ds, cfg, num_threads=8))
+    _build.reset_launch_counts()
+    results = run_inference(cfg, state.model, frames)
+    torch.cuda.synchronize()
+    eval_launches = _build.launch_counts[msda_cuda.FWD]
+    if len(results) != n_frames or eval_launches != LAYERS_PER_FRAME * n_frames:
+        raise AssertionError(f'eval: {len(results)} frames, {eval_launches} '
+                             f'msda_fwd launches')
+    _, means = collect_and_evaluate(cfg, eval_ds, str(workdir / 'results'),
+                                    0, 1, results)
+    if not all(np.isfinite(v) for v in means.values()):
+        raise AssertionError(f'eval metrics not finite: {means}')
+    gaps = np.diff(frames.stamps) * 1e3
+    eval_ms = statistics.median(gaps[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'  eval over {len(results)} frames: mAP {means["mAP"]:.4f}, CDS '
+        f'{means["CDS"]:.4f}; {eval_ms:.2f} ms/frame with the upload (median '
+        f'of frames 2..{n_frames - 1}); msda_fwd launches {eval_launches}; '
+        f'peak memory {peak:.2f} GiB [{card}]')
+    return dict(train_launches=train_launches, eval_launches=eval_launches,
+                ms_step=ms_step, wait_ms=wait_ms, idle_ms=idle_ms,
+                eval_ms=eval_ms, ckpt_gb=ckpt_gb, save_s=save_s,
+                pipe_ms=pipe_ms, warp_ms=warp_ms, peak_gib=peak,
+                mAP=means['mAP'], CDS=means['CDS'])
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1058,6 +1297,17 @@ def main():
         log('== phase 15: times of one stage-4 block')
         osa_t = osa_times(stage4.OSA4_2, x4, path['operands'], sh4, card)
 
+    path.pop('operands')
+    del x4, x3, osa_inputs, stage3, stage4
+    torch.cuda.empty_cache()
+
+    log('== phase 16: the dataset path: disk -> TrainLoader -> run_training '
+        '-> checkpoint, restore, resume -> EvalLoader -> run_inference -> AV2 '
+        'metrics')
+    with tempfile.TemporaryDirectory(prefix='far3d_data_') as tmp:
+        data = dataset_path(cfg, dev, card, Path(tmp))
+    torch.cuda.empty_cache()
+
     common = {'route': 'cuda', 'ms_per_frame': ms_frame, 'ms_per_step': ms_step,
               'peak_gib_train': train['peak_gib']}
     bwd_plain = 'msda_backward_reference: autograd through msda_reference, f32'
@@ -1067,6 +1317,8 @@ def main():
         'source': 'far3d_tpu_torch/csrc/msda_fwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
+        'dataset_train_launches': data['train_launches']['msda_fwd'],
+        'dataset_eval_launches': data['eval_launches'],
         'max_abs_err': max_abs_err, 'train_max_abs_err': train_fwd_err,
         'bitwise_repeatable': fwd_bitwise,
         'ms': kernel_ms, 'kernel_ms': kernel_ms,
@@ -1083,6 +1335,7 @@ def main():
         'replaces': 'far3d_tpu/ops/msda_pallas.py:260',
         'launches': train_launches['msda_dval'],
         'train_launches': train_launches['msda_dval'],
+        'dataset_train_launches': data['train_launches']['msda_dval'],
         'max_abs_err': errs['d_value'],
         'bitwise_repeatable': check['dval_bitwise'],
         'ms_by_launch': {k[:80]: v for k, v in times['dval_parts']},
@@ -1097,6 +1350,7 @@ def main():
         'replaces': 'far3d_tpu/ops/msda_pallas.py:348',
         'launches': train_launches['msda_dattn'],
         'train_launches': train_launches['msda_dattn'],
+        'dataset_train_launches': data['train_launches']['msda_dattn'],
         'max_abs_err': max(errs['d_loc'], errs['d_weights']),
         'bitwise_repeatable': check['dattn_bitwise'],
         'ms': times['dattn_ms'], 'kernel_ms': times['dattn_ms'],

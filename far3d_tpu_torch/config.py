@@ -223,6 +223,51 @@ class Far3DConfig:
         return dataclasses.replace(self, **kw)
 
 
+def apply_overrides(cfg: Far3DConfig, overrides: Sequence[str]) -> Far3DConfig:
+    """Dotted-path config overrides — the `--cfg-options` equivalent
+    (reference tools/train.py:64-73 DictAction deep-merge).
+
+    Each override is 'a.b.c=value'; value is parsed as a Python literal when
+    possible (ints, floats, bools, tuples), else kept as a string. Nested
+    dataclasses are rebuilt immutably. Unknown fields raise with the set of
+    valid names.
+    """
+    import ast
+
+    def set_path(node, path, value):
+        field = path[0]
+        names = {f.name for f in dataclasses.fields(node)}
+        if field not in names:
+            raise KeyError(
+                f'unknown config field {field!r} on {type(node).__name__}; '
+                f'valid: {sorted(names)}')
+        if len(path) == 1:
+            old = getattr(node, field)
+            if old is not None and not isinstance(old, (str, type(None))) \
+                    and isinstance(value, str):
+                raise TypeError(
+                    f'{".".join(path)}: could not parse {value!r} as a '
+                    f'literal for field of type {type(old).__name__}')
+            if isinstance(old, tuple) and isinstance(value, list):
+                value = tuple(value)
+            if isinstance(old, float) and isinstance(value, int):
+                value = float(value)
+            return dataclasses.replace(node, **{field: value})
+        return dataclasses.replace(
+            node, **{field: set_path(getattr(node, field), path[1:], value)})
+
+    for ov in overrides or ():
+        if '=' not in ov:
+            raise ValueError(f'override must be key=value, got {ov!r}')
+        key, raw = ov.split('=', 1)
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        cfg = set_path(cfg, key.strip().split('.'), value)
+    return cfg
+
+
 def tiny_test_config() -> Far3DConfig:
     """A scaled-down config for fast unit tests (CPU-sized shapes); the same
     shapes as the JAX package's ``tiny_test_config``."""

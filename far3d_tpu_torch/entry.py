@@ -16,14 +16,14 @@ it raises.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from .config import Far3DConfig
-from .models.detector import Far3D, decode_detections
+from .models.detector import Far3D
 from .models.farhead import init_state
-from .train.step import create_train_state, train_step
+from .train.step import create_train_state, make_infer_step, train_step
 from .utils.convert import random_reference_state_dict
 from .utils.synthetic import inference_inputs, synthetic_batch
 
@@ -40,24 +40,23 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def build_model(cfg: Far3DConfig, device, seed: int = 0) -> Far3D:
-    """Far3D on `device` with seeded random reference-keyed weights; the
-    parameters are allocated once, on the target device."""
+def build_model(cfg: Far3DConfig, device, seed: int = 0,
+                weights: Optional[Dict[str, torch.Tensor]] = None) -> Far3D:
+    """Far3D on `device` with `weights` (a reference-keyed state dict;
+    default: seeded random ones); the parameters are allocated once, on the
+    target device."""
     with torch.device('meta'):
         model = Far3D(cfg)
     model = model.to_empty(device=device)
-    model.load_state_dict(random_reference_state_dict(cfg, seed))
+    model.load_state_dict(random_reference_state_dict(cfg, seed)
+                          if weights is None else weights)
     return model.eval()
 
 
-@torch.inference_mode()
 def run_frame(model: Far3D, state, **inputs):
-    """One streaming frame and its NMS-free decode -> (detections, state)."""
-    out = model(state=state, **inputs)
-    dets = decode_detections(out['all_cls_scores'][-1],
-                             out['all_bbox_preds'][-1], out['query_valid'],
-                             model.cfg)
-    return dets, out['state']
+    """One streaming frame and its NMS-free decode -> (detections, state),
+    through ``train.step.make_infer_step``."""
+    return make_infer_step(model.cfg)(model, state, inputs)
 
 
 def entry(cfg: Optional[Far3DConfig] = None, device=None, seed: int = 0):

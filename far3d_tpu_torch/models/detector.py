@@ -39,7 +39,7 @@ class Far3D(nn.Module):
             level_shapes(cfg), cfg.data.input_hw, cfg.roi2d.threshold_score)
 
     def forward(self,
-                images: torch.Tensor,         # (B, N, H, W, 3) normalized BGR
+                images: torch.Tensor,         # (B, N, H, W, 3) BGR
                 lidar2img: torch.Tensor,      # (B, N, 4, 4)
                 intrinsics: torch.Tensor,     # (B, N, 4, 4)
                 extrinsics: torch.Tensor,     # (B, N, 4, 4)
@@ -57,6 +57,7 @@ class Far3D(nn.Module):
                 ) -> Dict[str, Any]:
         """The images' dtype sets the dtype of the image side (backbone, FPN,
         2D head and the sampled feature pyramid); the query side is f32.
+        uint8 images are normalized here and run in bf16.
 
         `train` (detector.py:35-98) switches the YOLOX towers' BN to batch
         statistics and turns on the decoder's dropouts, drawn from
@@ -66,6 +67,12 @@ class Far3D(nn.Module):
         back as ``outs2d`` for the 2D loss."""
         cfg = self.cfg
         b, n, h, w, _ = images.shape
+        if not images.is_floating_point():
+            # uint8 transport (detector.py:55-61): normalized on the device,
+            # then bf16, as the JAX package casts
+            mean = torch.tensor(cfg.data.img_mean, device=images.device)
+            std = torch.tensor(cfg.data.img_std, device=images.device)
+            images = ((images.float() - mean) / std).to(torch.bfloat16)
         # NHWC -> NCHW shape; on the card this is channels_last in memory
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(x))      # 4 x (BN, C, Hl, Wl)

@@ -1,5 +1,6 @@
-"""The Far3D training step (counterpart of ``far3d_tpu/train/step.py``:
-``create_train_state`` and ``make_train_step``).
+"""The Far3D training and inference steps (counterpart of
+``far3d_tpu/train/step.py``: ``create_train_state``, ``make_train_step`` and
+``make_infer_step``).
 
 One step: normalize uint8 images, grid mask, bf16 images when
 ``cfg.train.dtype == 'bfloat16'``, denoising queries, the forward in training
@@ -31,7 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import Far3DConfig
-from ..models.detector import Far3D, level_shapes
+from ..models.detector import Far3D, decode_detections, level_shapes
 from ..models.farhead import TemporalState, init_state
 from ..models.heads2d import make_priors
 from ..ops import grid_mask
@@ -76,14 +77,16 @@ def draw_step_noise(cfg: Far3DConfig, batch: int,
 def step_from_noise(cfg: Far3DConfig, state: TrainState,
                     tstate: TemporalState, batch: Dict[str, torch.Tensor],
                     noise: Dict[str, Any],
-                    dropout_generator: Optional[torch.Generator] = None
+                    dropout_generator: Optional[torch.Generator] = None,
+                    use_gt_depth: bool = True
                     ) -> Tuple[TrainState, TemporalState, Dict[str, torch.Tensor]]:
     """One training step given the step's draws (see the module docstring).
     `batch` holds the keys of ``utils.synthetic.synthetic_batch`` on the
     model's device. Returns (state, next temporal state, metrics: every loss
-    term, ``total_loss`` and the unclipped ``grad_norm``). The 2D proposals
-    sit at their GT depth, as in the reference until its UseGtDepthHook
-    switches that off late in training (a runner's job, not the step's)."""
+    term, ``total_loss`` and the unclipped ``grad_norm``). With
+    `use_gt_depth` the 2D proposals sit at their GT depth, as in the
+    reference until its UseGtDepthHook switches that off (the runner's
+    ``use_gt_depth_until_iter``); without, at the depth net's top bins."""
     model = state.model
     dev = next(model.parameters()).device
     with record_function('train.inputs'):
@@ -116,7 +119,7 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
                     gt_depth_bins=batch['gt_depth_bins'],
                     dn_ref_points=None if dn is None else dn['ref_points'],
                     dn_valid=None if dn is None else dn['valid'],
-                    use_gt_depth=True, train=True,
+                    use_gt_depth=use_gt_depth, train=True,
                     generator=dropout_generator)
     with record_function('train.loss_3d'):
         losses = farhead_loss(out, batch['gt_boxes'], batch['gt_labels'],
@@ -153,8 +156,32 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
 
 def train_step(cfg: Far3DConfig, state: TrainState, tstate: TemporalState,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
-               dropout_generator: Optional[torch.Generator] = None):
+               dropout_generator: Optional[torch.Generator] = None,
+               use_gt_depth: bool = True):
     """``draw_step_noise`` then ``step_from_noise``."""
     noise = draw_step_noise(cfg, batch['images'].shape[0], generator)
     return step_from_noise(cfg, state, tstate, batch, noise,
-                           dropout_generator)
+                           dropout_generator, use_gt_depth)
+
+
+def make_infer_step(cfg: Far3DConfig):
+    """Streaming inference step (reference simple_test_pts, far3d.py:244-266):
+    ``infer_step(model, tstate, batch) -> (detections, tstate)``. `batch`
+    holds the model inputs (images uint8, or normalized in any float dtype)
+    on the model's device; the detections are ``decode_detections``'."""
+
+    @torch.inference_mode()
+    def infer_step(model: Far3D, tstate: TemporalState,
+                   batch: Dict[str, torch.Tensor]):
+        out = model(images=batch['images'], lidar2img=batch['lidar2img'],
+                    intrinsics=batch['intrinsics'],
+                    extrinsics=batch['extrinsics'], state=tstate,
+                    prev_exists=batch['prev_exists'],
+                    timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
+                    ego_pose_inv=batch['ego_pose_inv'])
+        dets = decode_detections(out['all_cls_scores'][-1],
+                                 out['all_bbox_preds'][-1],
+                                 out['query_valid'], cfg)
+        return dets, out['state']
+
+    return infer_step

@@ -241,3 +241,71 @@ def random_reference_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
             sd[k] = (rng.standard_normal(sd[k].shape) * 0.5 - 1.0
                      ).astype(np.float32)
     return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    """N(0, 1) truncated to [-2, 2] (redrawn outside), scaled so that its
+    standard deviation is `std`: flax's ``variance_scaling`` with
+    'truncated_normal'."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2
+    return x * (std / 0.87962566103423978)
+
+
+def init_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Reference-keyed initial weights for training from scratch, drawn from
+    the JAX model's own initializers (in distribution; the draws differ):
+    lecun-normal kernels and zero biases (flax's defaults), norm scales 1
+    and biases 0, BN statistics 0 and 1, reference points U(0, 1), and the
+    overrides of the JAX modules: the focal prior bias -log(99) of the 3D
+    and 2D classifiers and the 2D objectness (farhead.py:419-421,
+    heads2d.py:69-81), xavier-uniform ``learnable_fc`` with U(-b, b) bias
+    b = offset_init_bias and xavier-uniform ``output_proj``
+    (decoder.py:64-67,106-109), zero ``weights_fc`` (:79-82), and the MLN's
+    zero-kernel ``gamma`` (bias 1) and ``beta`` (bias 0) (layers.py:92-97)."""
+    rng = np.random.default_rng(seed)
+    shapes = reference_key_shapes(cfg)
+    prior = -float(np.log((1 - 0.01) / 0.01))
+    sd: Dict[str, np.ndarray] = {}
+    for path, ref_key, kind in _build_mapping(cfg):
+        if ref_key in sd:                     # the MHA's packed q, k, v
+            continue
+        s = shapes[ref_key]
+        names, leaf = path[1:-1], path[-1]
+        module = names[-1] if names else ''
+        if path[0] in ('stats', 'batch_stats'):
+            v = np.zeros(s) if leaf == 'mean' else np.ones(s)
+        elif leaf in ('reference_points', 'pseudo_reference_points'):
+            v = rng.uniform(0.0, 1.0, s)
+        elif leaf == 'scale':
+            v = np.ones(s)
+        elif leaf == 'kernel' and module in ('weights_fc', 'gamma', 'beta'):
+            v = np.zeros(s)
+        elif leaf == 'kernel' and module in ('learnable_fc', 'output_proj'):
+            limit = np.sqrt(6.0 / (s[0] + int(np.prod(s[1:]))))
+            v = rng.uniform(-limit, limit, s)
+        elif leaf == 'kernel':
+            v = _truncated_normal(rng, s, np.sqrt(1.0 / int(np.prod(s[1:]))))
+        elif module == 'learnable_fc':
+            b = cfg.deform.offset_init_bias
+            v = rng.uniform(-b, b, s)
+        elif module == 'gamma':
+            v = np.ones(s)
+        elif module == 'cls_out' or module.startswith(('conv_cls', 'conv_obj')):
+            v = np.full(s, prior)
+        else:
+            v = np.zeros(s)
+        sd[ref_key] = v.astype(np.float32)
+    return {k: torch.from_numpy(sd[k]) for k in shapes}
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a reference ``.pth`` (its ``state_dict`` entry when it
+    has one, as mmcv writes them), on the CPU. Loaded with
+    ``weights_only=True``: tensors and plain containers, no code."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = ckpt.get('state_dict', ckpt)
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (the MSDA forward, its two backward
 kernels through autograd, and the fused OSA block) against their plain
-PyTorch versions, on the card. These tests import neither jax nor the JAX package, and skip where
+PyTorch versions, on the card, and the dataset-to-metric path there (the
+uint8 input branch against the CPU, two steps of the training runner from a
+PNG dataset on disk, a checkpoint round trip of a card state). These tests import neither jax nor the JAX package, and skip where
 there is no card. On a machine with a card and without jax:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -265,3 +267,101 @@ def test_cuda_osa_refuses_what_the_kernel_does_not_take(cuda_device):
     odd = dict(sh, cm=24)
     with pytest.raises(ValueError):
         osa_cuda.osa_fused(x_pad, mask, weights, odd)
+
+
+# ----------------------------------------------- the dataset-to-metric path
+def _tiny_model(device, seed=0):
+    from far3d_tpu_torch.config import tiny_test_config
+    from far3d_tpu_torch.entry import build_model
+    from far3d_tpu_torch.utils.convert import init_state_dict
+    cfg = tiny_test_config()
+    return cfg, build_model(cfg, device, weights=init_state_dict(cfg, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_uint8_branch_matches_cpu(cuda_device):
+    """uint8 images are normalized on the card to the same bf16 tensor as on
+    the CPU (a subtraction and an IEEE f32 division, then one rounding)."""
+    from far3d_tpu_torch.models.farhead import init_state
+    from far3d_tpu_torch.utils.synthetic import inference_inputs
+    cfg, _ = _tiny_model('cpu')
+    inputs = {k: torch.from_numpy(v)
+              for k, v in inference_inputs(cfg, 1, seed=2).items()}
+    inputs['images'] = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, tuple(inputs['images'].shape)).astype(np.uint8))
+    seen = {}
+    for dev in ('cpu', cuda_device):
+        _, model = _tiny_model(dev)
+        model.img_backbone.register_forward_pre_hook(
+            lambda m, args, dev=str(dev): seen.setdefault(dev, args[0]))
+        with torch.inference_mode():
+            out = model(state=init_state(1, cfg.head, dev),
+                        **{k: v.to(dev) for k, v in inputs.items()})
+        assert torch.isfinite(out['all_cls_scores']).all()
+    got, want = seen[str(cuda_device)], seen['cpu']
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_run_training_from_disk(cuda_device, tmp_path):
+    """Two steps of run_training on the card from a PNG dataset on disk
+    (the tiny learnable dataset), crossing the GT-depth switch; each MSDA
+    kernel launched 2 x num_layers times; the last step saved."""
+    import dataclasses
+    import json
+    from far3d_tpu_torch.data.av2_dataset import AV2SequenceDataset
+    from far3d_tpu_torch.data.loader import TrainLoader
+    from far3d_tpu_torch.train.runner import run_training
+    from far3d_tpu_torch.utils.checkpoint import CheckpointManager
+    from far3d_tpu_torch.utils.synthetic import make_learnable_dataset
+    cfg, _ = _tiny_model('cpu')
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, use_gt_depth_until_iter=1, log_every=1,
+        checkpoint_every=5))
+    ann = str(tmp_path / 'infos.pkl')
+    make_learnable_dataset(ann, str(tmp_path), n_scenes=1, frames_per_scene=3)
+    loader = TrainLoader(AV2SequenceDataset(ann, str(tmp_path)), cfg, 1,
+                         num_threads=2, device=cuda_device)
+    names = (msda_cuda.FWD, msda_cuda.DVAL, msda_cuda.DATTN)
+    before = {k: _build.launch_counts.get(k, 0) for k in names}
+    try:
+        state = run_training(cfg, loader, str(tmp_path / 'work'), 1,
+                             resume=False, max_iters=2, device=cuda_device)
+    finally:
+        loader.stop()
+    assert state.step == 2
+    for k in names:
+        assert _build.launch_counts[k] - before[k] == \
+            2 * cfg.decoder.num_layers, k
+    lines = (tmp_path / 'work' / 'metrics.jsonl').read_text().splitlines()
+    assert len(lines) == 2
+    assert all(np.isfinite(list(json.loads(x).values())).all() for x in lines)
+    assert CheckpointManager(str(tmp_path / 'work')).all_steps() == [2]
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_is_bitwise(cuda_device, tmp_path):
+    from far3d_tpu_torch.train.step import create_train_state, train_step
+    from far3d_tpu_torch.utils.checkpoint import CheckpointManager
+    from far3d_tpu_torch.utils.synthetic import synthetic_batch
+    cfg, model = _tiny_model(cuda_device)
+    state, tstate = create_train_state(cfg, model)
+    batch = {k: v.to(cuda_device) for k, v in synthetic_batch(cfg, 1).items()}
+    state, _, _ = train_step(cfg, state, tstate, batch,
+                             torch.Generator().manual_seed(0),
+                             torch.Generator(cuda_device).manual_seed(0))
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(state.step, state)
+    fresh, _ = create_train_state(cfg, _tiny_model(cuda_device, seed=1)[1])
+    mgr.restore(fresh)
+    assert fresh.step == state.step == 1
+    a, b = fresh.model.state_dict(), state.model.state_dict()
+    for k in b:
+        assert a[k].device == b[k].device and torch.equal(a[k], b[k]), k
+    oa, ob = fresh.optimizer.state_dict(), state.optimizer.state_dict()
+    assert oa['state'].keys() == ob['state'].keys()
+    for i in ob['state']:
+        for k in ('step', 'exp_avg', 'exp_avg_sq'):
+            x, y = oa['state'][i][k], ob['state'][i][k]
+            assert x.device == y.device and torch.equal(x, y), (i, k)

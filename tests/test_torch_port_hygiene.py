@@ -1,5 +1,7 @@
 """Import and device hygiene of the PyTorch port: it never loads jax, flax or
-the JAX package, and its entry point never quietly falls back to the CPU."""
+the JAX package (nor, from its modules, OpenCV, PIL or pandas, which the
+card's machine lacks), and its entry points never quietly fall back to the
+CPU."""
 
 import ast
 import pathlib
@@ -98,3 +100,74 @@ def test_osa_cuda_wrapper_refuses_cpu_tensors():
     x_pad = osa.pad_plane(torch.zeros(1, 2, 3, 16, **bf16), sh['wp'])
     with pytest.raises(ValueError, match='CUDA'):
         osa_fused(x_pad, osa.interior_mask(2, 3, 4), weights, sh)
+
+
+def _port_modules():
+    return sorted('.'.join(p.relative_to(ROOT).with_suffix('').parts)
+                  for p in (ROOT / 'far3d_tpu_torch').rglob('*.py')
+                  if p.name != '__init__.py')
+
+
+def test_every_module_loads_no_jax_opencv_pil_or_pandas():
+    mods = _port_modules()
+    assert 'far3d_tpu_torch.data.image_io' in mods
+    forbidden = FORBIDDEN + ('cv2', 'PIL', 'pandas')
+    code = ('import importlib, sys\n'
+            f'for m in {mods!r}: importlib.import_module(m)\n'
+            f'bad = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]\n'
+            'print(bad); sys.exit(1 if bad else 0)')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    return pytest.raises(RuntimeError, match="device='cpu'")
+
+
+def test_run_training_without_a_card_raises(monkeypatch, tmp_path):
+    from far3d_tpu_torch.config import tiny_test_config
+    from far3d_tpu_torch.train.runner import run_training
+    with _no_card(monkeypatch):
+        run_training(tiny_test_config(), iter(()), str(tmp_path), 1)
+
+
+def test_run_inference_without_a_card_raises(monkeypatch):
+    from far3d_tpu_torch.config import tiny_test_config
+    from far3d_tpu_torch.entry import build_model
+    from far3d_tpu_torch.eval.runner import run_inference
+    cfg = tiny_test_config()
+    model = build_model(cfg, 'cpu')
+    with _no_card(monkeypatch):
+        run_inference(cfg, model, [])
+
+
+@pytest.mark.parametrize('cli,argv', [
+    ('train', ['--data-root', 'missing', '--tiny']),
+    ('test', ['--data-root', 'missing', '--checkpoint', 'missing', '--tiny']),
+    ('overfit_demo', ['--work', 'missing', '--iters', '1'])])
+def test_cli_without_a_card_raises(monkeypatch, tmp_path, cli, argv):
+    import importlib
+    main = importlib.import_module(f'far3d_tpu_torch.cli.{cli}').main
+    monkeypatch.chdir(tmp_path)
+    with _no_card(monkeypatch):
+        main(argv)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize('loader', ['TrainLoader', 'EvalLoader'])
+def test_loader_without_a_card_raises(monkeypatch, loader):
+    from far3d_tpu_torch.config import tiny_test_config
+    from far3d_tpu_torch.data import loader as mod
+
+    class Empty:
+        flag = [0]
+
+        def __len__(self):
+            return 1
+
+    args = (Empty(), tiny_test_config()) + ((1,) if loader == 'TrainLoader'
+                                            else ())
+    with _no_card(monkeypatch):
+        getattr(mod, loader)(*args)

@@ -1,6 +1,8 @@
 """The port's whole training step (far3d_tpu_torch/train/step.py) against the
 JAX package's ``make_train_step``, two steps on shared weights, in f32 on the
-CPU at the tiny size.
+CPU at the tiny size, with the 2D proposals at their GT depth and at the
+depth net's predicted bins (``use_gt_depth`` True and False, the two sides
+of the runner's UseGtDepthHook switch).
 
 Both sides: dropout rates 0 (the two frameworks draw different bits), the
 grid mask on and the DN noise drawn by the JAX step's own keys
@@ -96,8 +98,10 @@ SECOND_FRAME = dict(prev_exists=np.ones((1,), np.float32),
                     timestamp=np.full((1,), 0.5, np.float32))
 
 
-@pytest.fixture(scope='module')
-def runs():
+@pytest.fixture(scope='module', params=[True, False],
+                ids=['gt_depth', 'pred_depth'])
+def runs(request):
+    use_gt_depth = request.param
     jax_cfg, port_cfg = train_cfgs()
     variables, sd = shared_weights(jax_cfg, port_cfg)
     key = jax.random.PRNGKey(RNG_SEED)
@@ -114,7 +118,7 @@ def runs():
     jmetrics = []
     p1, p2 = scipy_matching()
     with p1, p2:
-        step = jax.jit(make_train_step(jax_cfg, use_gt_depth=True))
+        step = jax.jit(make_train_step(jax_cfg, use_gt_depth=use_gt_depth))
         for s in range(STEPS):
             b = jbatch if s == 0 else jbatch.replace(**SECOND_FRAME)
             jstate, jt, m = step(jstate, jt, b, key)
@@ -132,7 +136,8 @@ def runs():
                           for k, v in SECOND_FRAME.items()})
         noise = jax_step_noise(jax_cfg, key, s)
         noises.append(noise)
-        state, tt, m = step_from_noise(port_cfg, state, tt, batch, noise)
+        state, tt, m = step_from_noise(port_cfg, state, tt, batch, noise,
+                                       use_gt_depth=use_gt_depth)
         tmetrics.append({k: float(v) for k, v in m.items()})
     return dict(jax=(jstate, jt, jmetrics, jbatch), port=(state, tt, tmetrics),
                 cfg=port_cfg, noises=noises)
