@@ -6,7 +6,8 @@
 Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
-     msda_bwd.cu, osa_fused.cu), one nvcc each, all started together;
+     msda_bwd.cu, osa_fused.cu, qconv.cu), one nvcc each, all started
+     together;
   3. kernel vs plain version on the shared cases of tests/_msda_cases.py
      (f32: edge cases, crowded, production_like, rows_past_int16,
      sparse_pairs; msda_fwd, and msda_dval and msda_dattn within BWD_TOL),
@@ -75,7 +76,23 @@ Phases, each raising on failure:
      EvalLoader over the 8 frames feeding run_inference (uint8 frames
      uploaded ahead, msda_fwd 6 times a frame) and collect_and_evaluate
      (finite mAP and CDS); the loader's host ms a frame and its warp's,
-     ms/step and the wait on the loader, eval ms/frame and peak memory.
+     ms/step and the wait on the loader, eval ms/frame and peak memory;
+ 17. the fifth main path, int8 serving at full width: the int8 conv kernel
+     (csrc/qconv.cu) bitwise against its plain version at the shapes of
+     tests/_qconv_cases.py; Far3DConfig() with seeded weights, its backbone
+     calibrated on 2 frames and quantized, 8 streaming frames through
+     quant_backbone (99 qconv and 6 msda_fwd launches a frame), ms/frame
+     int8, bf16, int8 in turn; the stage outputs' relative L2 error against
+     the bf16 backbone on a held-out frame; the kernel bitwise against its
+     plain version on the operands of all 99 conv sites of a frame; per
+     class of sites the kernel's device ms (warm and cold L2), its bound,
+     the plain version, an im2col + torch._int_mm composite and the bf16
+     cuDNN conv (yardsticks, never called by the port), summed over the
+     frame; both backbones' device busy ms (torch.profiler); then phase 16's
+     eval again through cli.test --quant --submission on its checkpoint,
+     with a drivable-area map per scene written beside the dataset, with
+     the ROI gate (--map-root) and without: mAP, CDS, the GT boxes counted,
+     the submission's rows read back from the file's footer.
 Then it prints one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
@@ -98,6 +115,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from far3d_tpu_torch.cli import test as cli_test
 from far3d_tpu_torch.config import Far3DConfig, tiny_test_config
 from far3d_tpu_torch.data import pipeline
 from far3d_tpu_torch.data.av2_dataset import AV2SequenceDataset
@@ -105,14 +123,19 @@ from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
 from far3d_tpu_torch.entry import build_model, entry, run_frame, train_entry
 from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
 from far3d_tpu_torch.models.farhead import init_state
-from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
+from far3d_tpu_torch.ops import (_build, msda_cuda, osa, osa_cuda, qconv_cuda,
+                                 quant)
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
+from far3d_tpu_torch.ops.qconv import (out_size, qconv_reference,
+                                       requant_epilogue)
 from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
-                                        step_from_noise, train_step)
+                                        make_infer_step, step_from_noise,
+                                        train_step)
 from far3d_tpu_torch.train import runner
 from far3d_tpu_torch.utils.checkpoint import CheckpointManager
 from far3d_tpu_torch.utils.convert import init_state_dict
+from far3d_tpu_torch.utils.feather import num_rows
 from far3d_tpu_torch.utils.synthetic import (inference_inputs,
                                              make_learnable_dataset_fullsize,
                                              synthetic_batch)
@@ -128,6 +151,10 @@ DATA_RESUME_STEPS = 8
 DATA_GT_DEPTH_UNTIL = 3        # steps 0-2 with GT depth, 3-7 without
 DATA_SAVE_EVERY = 4            # a save at step 4, a forced one at step 6
 DATA_IDLE_STEPS = 4            # then steps 8-11 with the loader idle
+SERVE_FRAMES = 8               # int8 streaming frames of phase 17
+CALIB_FRAMES = 2               # its calibration frames
+QCONV_PER_FRAME = 99           # 3 stem convs + 16 OSA blocks x (5 + concat)
+QUANT_REL_L2 = 0.08            # tests/test_quant.py:88-91, printed beside
 # The eight fused blocks against the model's own modules: the model rounds
 # each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
 # kernel applies it in f32 on the f32 sum and rounds once, so each of a
@@ -139,6 +166,7 @@ OSA_PATH_TOL = dict(max_share=5e-2, mean_share=5e-3)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 on the tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9    # H100 SXM top SM clock, for torch.cuda._sleep
 EDGE_TOL = dict(rtol=1e-5, atol=1e-5)
 # Production shape: both sides accumulate in f32 from the same bf16 rows and
@@ -1099,6 +1127,303 @@ def dataset_path(cfg, dev, card, workdir):
                 mAP=means['mAP'], CDS=means['CDS'])
 
 
+def qconv_small_shapes(dev):
+    """Phase 17a: the int8 conv kernel against qconv_reference, bitwise, at
+    the shapes of tests/_qconv_cases.py, both epilogues."""
+    shared = shared_cases('_qconv_cases')
+    for name, sh in sorted(shared.QCONV_SHAPES.items()):
+        ops = shared.port_operands(sh, 0, dev)
+        for float_out in (False, True):
+            got = qconv_cuda.qconv_cuda(*ops, sh['stride'], float_out)
+            torch.cuda.synchronize()
+            if not torch.equal(got, qconv_reference(*ops, sh['stride'],
+                                                    float_out)):
+                raise AssertionError(f'qconv {name} float_out={float_out}: '
+                                     'not bitwise equal to the plain version')
+        log(f'  {name} {sh}: int8 and f32 epilogues bitwise equal')
+
+
+def qconv_site_names(bcfg):
+    """The JAX package's names of the backbone's conv sites, in the order
+    quant_vovnet_forward calls them."""
+    names = ['stem1', 'stem2', 'stem3']
+    for si, blocks in enumerate(bcfg.blocks_per_stage):
+        for bi in range(blocks):
+            block = f'stage{si + 2}_block{bi}'
+            names += [f'{block}/layer{li}'
+                      for li in range(bcfg.layers_per_block)]
+            names.append(f'{block}/concat')
+    return names
+
+
+def record_qconv_sites(fn):
+    """Run `fn` once with ops.quant's qconv wrapped; returns the operands of
+    every call, (x, w, a, b, stride, float_out), in call order."""
+    sites, real = [], quant.qconv
+
+    def recording(x, w, a, b, stride=1, float_out=False):
+        sites.append((x, w, a, b, stride, float_out))
+        return real(x, w, a, b, stride, float_out)
+
+    quant.qconv = recording
+    try:
+        fn()
+    finally:
+        quant.qconv = real
+    return sites
+
+
+def int_mm_composite(x, w, a, b, stride, float_out):
+    """Yardstick: the conv as an im2col (pad, k*k strided slices, one cat,
+    K zero-padded to a multiple of 8) and torch._int_mm (cuBLASLt s8 x s8 ->
+    s32), then the same epilogue. Never called by the port."""
+    n, h, wd, ci = x.shape
+    co, k = w.shape[0], w.shape[1]
+    p = (k - 1) // 2
+    ho, wo = out_size(h, k, stride), out_size(wd, k, stride)
+    kdim = k * k * ci
+    kp = -(-kdim // 8) * 8
+    wm = F.pad(w.reshape(co, kdim), (0, kp - kdim)).contiguous()
+
+    def run():
+        xp = F.pad(x, (0, 0, p, p, p, p))
+        cols = [xp[:, dy:dy + (ho - 1) * stride + 1:stride,
+                   dx:dx + (wo - 1) * stride + 1:stride]
+                for dy in range(k) for dx in range(k)]
+        if kp > kdim:
+            cols.append(x.new_zeros(n, ho, wo, kp - kdim))
+        acc = torch._int_mm(torch.cat(cols, dim=-1).reshape(-1, kp), wm.t())
+        return requant_epilogue(acc, a, b, float_out).reshape(n, ho, wo, co)
+    return run
+
+
+def qconv_sites_check(sites, names):
+    """Phase 17c: the kernel against its plain version, bitwise, on the
+    operands of every conv site of one full-width frame."""
+    for name, (x, w, a, b, stride, float_out) in zip(names, sites):
+        got = qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out)
+        torch.cuda.synchronize()
+        if not torch.equal(got, qconv_reference(x, w, a, b, stride,
+                                                float_out)):
+            raise AssertionError(f'qconv at {name} {tuple(x.shape)} -> '
+                                 f'{tuple(w.shape)}: not bitwise equal')
+    log(f'  all {len(sites)} conv sites of the frame: the kernel bitwise '
+        'equal to the plain version (float64 unfold on the card)')
+
+
+def qconv_site_times(sites, names, card):
+    """Phase 17d: per class of identical sites, the kernel's device ms (warm
+    and cold L2), its bound, the plain version's, the im2col + _int_mm
+    composite's and the bf16 cuDNN conv's of the same shape; and the sums
+    over the frame's sites."""
+    classes = {}
+    for name, site in zip(names, sites):
+        x, w, _, _, stride, float_out = site
+        key = (tuple(x.shape), tuple(w.shape), stride, float_out)
+        classes.setdefault(key, (site, []))[1].append(name)
+    tot = dict(ms=0.0, cold=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0,
+               bound_ms=0.0, t_ops=0.0, t_bytes=0.0, ops=0)
+    rows = []
+    for (xs, ws, stride, float_out), (site, members) in classes.items():
+        x, w, a, b = site[:4]
+        n, h, wd, ci = xs
+        co, k = ws[0], ws[1]
+        ho, wo = out_size(h, k, stride), out_size(wd, k, stride)
+        ops = 2 * n * ho * wo * co * k * k * ci
+        out_bytes = n * ho * wo * co * (4 if float_out else 1)
+        nbytes = x.numel() + w.numel() + 8 * co + out_bytes
+        t_ops = ops / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        kern = lambda: qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out)
+        lib = int_mm_composite(x, w, a, b, stride, float_out)
+        if not torch.equal(lib(), kern()):
+            raise AssertionError(f'the _int_mm composite disagrees at '
+                                 f'{members[0]}')
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)      # channels last
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+        cudnn = lambda: F.conv2d(xb, wb, None, stride, (k - 1) // 2)
+        t = dict(ms=device_ms(kern, 20), cold=cold_l2_ms(kern, 10),
+                 plain_ms=device_ms(lambda: qconv_reference(
+                     x, w, a, b, stride, float_out), 1),
+                 library_ms=device_ms(lib, 10), cudnn_ms=device_ms(cudnn, 20),
+                 bound_ms=max(t_ops, t_bytes), t_ops=t_ops, t_bytes=t_bytes,
+                 ops=ops)
+        for key in tot:
+            tot[key] += len(members) * t[key]
+        rows.append((members, t))
+        log(f'  {members[0]}{" .. " + members[-1] if len(members) > 1 else ""}'
+            f' (x{len(members)}): x {xs} -> co {co}, k {k}, stride {stride}'
+            f'{", f32 out" if float_out else ""}: {t["ms"]:.4f} ms warm, '
+            f'{t["cold"]:.4f} cold, {ops / t["ms"] / 1e9:.1f} TOPS; bound '
+            f'{t["bound_ms"]:.4f} ('
+            f'{"operations" if t_ops >= t_bytes else "bytes"}); plain '
+            f'{t["plain_ms"]:.3f}; im2col + _int_mm {t["library_ms"]:.4f}; '
+            f'bf16 cuDNN conv {t["cudnn_ms"]:.4f} [{card}]')
+    tot['bound_by'] = 'operations' if tot['t_ops'] >= tot['t_bytes'] \
+        else 'bytes'
+    log(f'  the frame\'s {len(sites)} sites: qconv {tot["ms"]:.4f} ms warm, '
+        f'{tot["cold"]:.4f} ms cold L2, {tot["ops"] / 1e12:.3f} T int8 '
+        f'operations, {tot["ops"] / tot["ms"] / 1e9:.1f} TOPS; bound '
+        f'{tot["bound_ms"]:.4f} ms (operations alone '
+        f'{tot["t_ops"]:.4f}); plain {tot["plain_ms"]:.2f} ms; im2col + '
+        f'_int_mm {tot["library_ms"]:.4f} ms; bf16 cuDNN convs '
+        f'{tot["cudnn_ms"]:.4f} ms [{card}]')
+    return tot
+
+
+def device_busy(fn, reps=3):
+    """Device busy ms of one call of `fn` (the sum of its kernels' device
+    times under torch.profiler, mean of `reps` calls), and of it the
+    kernels whose name holds 'qconv'."""
+    parts = launch_breakdown(fn, reps)
+    total = sum(ms for _, ms in parts)
+    return total, sum(ms for name, ms in parts if 'qconv' in name), parts
+
+
+def serving_path(cfg, dev, card):
+    """Phase 17b, d-g: the int8 serving path at full width."""
+    t0 = time.perf_counter()
+    step, (state,) = entry(cfg)
+    model = step.model
+    infer = make_infer_step(cfg)
+    calib = [torch.from_numpy(inference_inputs(cfg, seed=s)['images'])
+             .to(dev, torch.bfloat16) for s in range(1, 1 + CALIB_FRAMES)]
+    q = quant.quantize_detector_backbone(model, calib)
+    torch.cuda.synchronize()
+    log(f'  model built and its backbone calibrated on {CALIB_FRAMES} frames '
+        f'and quantized in {time.perf_counter() - t0:.1f} s')
+    inputs = {k: torch.from_numpy(v).to(dev)
+              for k, v in inference_inputs(cfg, seed=0).items()}
+    inputs['images'] = inputs['images'].to(torch.bfloat16)
+
+    def frames(tree):
+        nonlocal state
+        times, dets = [], None
+        for i in range(SERVE_FRAMES):
+            batch = dict(inputs, prev_exists=torch.full((1,), float(i > 0),
+                                                         device=dev),
+                         timestamp=torch.full((1,), 0.1 * i, device=dev))
+            t0 = time.perf_counter()
+            dets, state = infer(model, state, batch, tree)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for k in ('scores', 'boxes'):
+                if not torch.isfinite(dets[k]).all():
+                    raise AssertionError(f'frame {i}: non-finite {k}')
+        return statistics.median(times[2:]), dets
+
+    frames(q)                                          # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    int8_frame_ms, dets = frames(q)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    want = {'qconv': QCONV_PER_FRAME * SERVE_FRAMES,
+            'msda_fwd': LAYERS_PER_FRAME * SERVE_FRAMES}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f'launches on the int8 path {launches}, '
+                             f'expected {want}')
+    bf16_frame_ms, _ = frames(None)
+    int8_again_ms, _ = frames(q)
+    log(f'  {SERVE_FRAMES} streaming frames through quant_backbone: launches '
+        f'{launches} ({QCONV_PER_FRAME} qconv and {LAYERS_PER_FRAME} msda_fwd '
+        f'a frame); top score {dets["scores"][0, 0].item():.4f}, valid '
+        f'{int(dets["valid"].sum())}')
+    log(f'  ms/frame (median of frames 2..{SERVE_FRAMES - 1}), in turn: int8 '
+        f'{int8_frame_ms:.2f}, bf16 {bf16_frame_ms:.2f}, int8 '
+        f'{int8_again_ms:.2f} [{card}]')
+
+    x_bf16 = torch.from_numpy(inference_inputs(cfg, seed=3)['images']).to(
+        dev, torch.bfloat16)
+    x_bf16 = x_bf16.reshape(-1, *x_bf16.shape[2:])          # held out
+    x_q = quant.quantize_input(x_bf16, q['s0'])
+    x_nchw = x_bf16.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = quant.quant_vovnet_forward(cfg.backbone, q, x_q)
+        ref = model.img_backbone(x_nchw)
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(got, ref)]
+        if not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError('int8 stage outputs not finite')
+        log('  stage outputs, relative L2 error against the bf16 backbone on '
+            'a held-out frame: ' + ', '.join(
+                f'stage {i + 2} {r:.4f}' for i, r in enumerate(rel))
+            + f' (tests/test_quant.py bound at the tiny size: {QUANT_REL_L2})')
+
+        names = qconv_site_names(cfg.backbone)
+        sites = record_qconv_sites(
+            lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
+        if len(sites) != len(names):
+            raise AssertionError(f'{len(sites)} conv sites, {len(names)} '
+                                 'names')
+        qconv_sites_check(sites, names)
+        site_t = qconv_site_times(sites, names, card)
+        del sites
+        torch.cuda.empty_cache()
+        int8_bb, int8_qconv, int8_parts = device_busy(
+            lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
+        bf16_bb, _, bf16_parts = device_busy(
+            lambda: model.img_backbone(x_nchw))
+    log(f'  backbone device busy ms (torch.profiler, mean of 3): int8 '
+        f'{int8_bb:.4f} (of it qconv {int8_qconv:.4f}, the rest '
+        f'{int8_bb - int8_qconv:.4f}), bf16 cuDNN {bf16_bb:.4f} [{card}]')
+    log('  int8 backbone, top kernels: ' + '; '.join(
+        f'{name[:60]} {ms:.4f}' for name, ms in int8_parts[:6]))
+    log('  bf16 backbone, top kernels: ' + '; '.join(
+        f'{name[:60]} {ms:.4f}' for name, ms in bf16_parts[:6]))
+    return dict(launches=launches['qconv'], int8_frame_ms=int8_frame_ms,
+                int8_again_ms=int8_again_ms, bf16_frame_ms=bf16_frame_ms,
+                rel_l2=rel, int8_backbone_ms=int8_bb,
+                int8_qconv_ms=int8_qconv, bf16_backbone_ms=bf16_bb, **site_t)
+
+
+def write_drivable_maps(workdir):
+    """One drivable-area map a scene of phase 16's dataset, beside it
+    ({scene}/map/log_map_archive_{scene}.json): a 100 x 50 m area around the
+    ego's path, so that the ROI (5 m past it) keeps the GT boxes ahead and
+    to the left of the ego and drops those well behind or to its right."""
+    for scene in sorted({i['scene_id'] for i in AV2SequenceDataset(
+            str(workdir / 'infos.pkl'), str(workdir)).infos}):
+        mdir = workdir / scene / 'map'
+        mdir.mkdir(parents=True, exist_ok=True)
+        area = [(-20.0, -12.0), (80.0, -12.0), (80.0, 38.0), (-20.0, 38.0)]
+        (mdir / f'log_map_archive_{scene}.json').write_text(json.dumps(
+            {'drivable_areas': {'0': {'id': 0, 'area_boundary': [
+                {'x': x, 'y': y, 'z': 0.0} for x, y in area]}}}))
+
+
+def serving_cli(workdir, card):
+    """Phase 17h: phase 16's eval again, through cli.test --quant
+    --submission on its checkpoint, with the HD-map ROI gate and without."""
+    write_drivable_maps(workdir)
+    base = ['--data-root', str(workdir), '--ann-file',
+            str(workdir / 'infos.pkl'), '--checkpoint', str(workdir / 'work'),
+            '--quant', '--quant-calib-frames', str(CALIB_FRAMES)]
+    out = {}
+    for tag, extra in (('roi', ['--map-root', str(workdir)]), ('range', [])):
+        sub = workdir / f'submission_{tag}.feather'
+        t0 = time.perf_counter()
+        res = cli_test.evaluate(base + extra + [
+            '--submission', str(sub), '--results-dir',
+            str(workdir / f'results_{tag}')])
+        wall = time.perf_counter() - t0
+        rows = num_rows(str(sub))
+        gts = sum(v['num_gts'] for v in res['summary'].values())
+        if rows != res['submission_rows'] or not all(
+                np.isfinite(v) for v in res['means'].values()):
+            raise AssertionError(f'cli.test {tag}: {res}, footer rows {rows}')
+        out[tag] = dict(mAP=res['means']['mAP'], CDS=res['means']['CDS'],
+                        rows=rows, gts=gts, frames=res['frames'])
+        log(f'  cli.test --quant --submission{" --map-root" if extra else ""}'
+            f': {res["frames"]} frames, mAP {res["means"]["mAP"]:.4f}, CDS '
+            f'{res["means"]["CDS"]:.4f}, {gts} GT boxes evaluated, submission '
+            f'{rows} rows (read back from the file\'s footer); {wall:.1f} s '
+            f'[{card}]')
+    if out['roi']['gts'] >= out['range']['gts']:
+        raise AssertionError(f'the ROI gate dropped no GT box: {out}')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1306,6 +1631,16 @@ def main():
         'metrics')
     with tempfile.TemporaryDirectory(prefix='far3d_data_') as tmp:
         data = dataset_path(cfg, dev, card, Path(tmp))
+        torch.cuda.empty_cache()
+
+        log('== phase 17: the int8 serving path: qconv at small and awkward '
+            'shapes, Far3DConfig() through quant_backbone, every conv site, '
+            'times, and phase 16\'s eval through cli.test --quant --map-root '
+            '--submission')
+        qconv_small_shapes(dev)
+        serve = serving_path(cfg, dev, card)
+        torch.cuda.empty_cache()
+        serve_cli = serving_cli(Path(tmp), card)
     torch.cuda.empty_cache()
 
     common = {'route': 'cuda', 'ms_per_frame': ms_frame, 'ms_per_step': ms_step,
@@ -1380,6 +1715,32 @@ def main():
         'unfused_module_ms': osa_t['unfused_ms'],
         'stage4_chain_ms': path['chain_ms'],
         'stage4_model_chain_ms': path['model_ms'],
+    }, {
+        'name': 'qconv', **common,
+        'source': 'far3d_tpu_torch/csrc/qconv.cu',
+        'replaces': 'far3d_tpu/ops/quant.py:228',
+        'replaces_note': 'an XLA s8 convolution with a fused epilogue, no '
+                         'Pallas kernel',
+        'launches': serve['launches'], 'launches_per_frame': QCONV_PER_FRAME,
+        'max_abs_err': 0.0, 'bitwise_sites': QCONV_PER_FRAME,
+        'ms': serve['ms'], 'kernel_ms': serve['ms'],
+        'ms_cold_l2': serve['cold'], 'plain_ms': serve['plain_ms'],
+        'plain': 'qconv_reference: float64 unfold x weights, the same '
+                 'epilogue (sums over the frame\'s 99 sites)',
+        'bound_ms': serve['bound_ms'], 'bound_by': serve['bound_by'],
+        'int8_tera_ops_per_frame': serve['ops'] / 1e12,
+        'library_ms': serve['library_ms'],
+        'library': 'im2col (pad, k*k slices, cat) + torch._int_mm + the same '
+                   'epilogue, summed over the 99 sites',
+        'cudnn_bf16_conv_ms': serve['cudnn_ms'],
+        'int8_backbone_ms': serve['int8_backbone_ms'],
+        'int8_backbone_qconv_ms': serve['int8_qconv_ms'],
+        'bf16_backbone_ms': serve['bf16_backbone_ms'],
+        'ms_per_frame_int8': serve['int8_frame_ms'],
+        'ms_per_frame_int8_again': serve['int8_again_ms'],
+        'ms_per_frame_bf16': serve['bf16_frame_ms'],
+        'stage_rel_l2': serve['rel_l2'],
+        'cli_test': serve_cli,
     }]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -3,14 +3,17 @@ reference tools/test.py + dist_test.sh), one process on one card:
 
     python -m far3d_tpu_torch.cli.test --data-root data/av2 \\
         --checkpoint work_dirs/far3d [--torch-checkpoint iter_82548.pth] \\
-        [--eval-range-m 150]
+        [--eval-range-m 150] [--map-root data/av2] \\
+        [--submission out.feather] [--quant [--quant-calib-frames 8]]
 
 --checkpoint restores the latest train state that ``cli.train`` saved in
 that directory; --torch-checkpoint loads a reference ``.pth`` by key, since
-the port's parameter names are the reference's. Prints the AV2 metrics
-(mAP, CDS and the true-positive errors) per class. Not ported: the HD-map
-ROI gate (--map-root), the feather submission (--submission), the int8
-backbone (--quant) and several processes.
+the port's parameter names are the reference's. --map-root gates the
+metric with the HD map's drivable-area ROI (``eval/map_roi.py``),
+--submission writes the AV2 Feather submission, and --quant serves with the
+int8 backbone (``ops/quant.py``), calibrated on the first
+--quant-calib-frames frames. Prints the AV2 metrics (mAP, CDS and the
+true-positive errors) per class. Not ported: several processes.
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ import dataclasses
 import sys
 
 
-def main(argv=None):
+def evaluate(argv=None):
+    """Parse the command line and evaluate -> {'means': the AV2 means,
+    'summary': per class, 'frames': frames evaluated, 'submission_rows':
+    rows written or None}."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--data-root', required=True)
     p.add_argument('--ann-file', default=None)
@@ -30,6 +36,12 @@ def main(argv=None):
                    help='reference .pth to evaluate')
     p.add_argument('--results-dir', default='work_dirs/far3d/results')
     p.add_argument('--eval-range-m', type=float, default=None)
+    p.add_argument('--map-root', default=None,
+                   help='AV2 sensor-data root holding {log_id}/map/ dirs; '
+                        'enables the HD-map ROI gate (av2_eval_util.py:'
+                        '158-318)')
+    p.add_argument('--submission', default=None,
+                   help='AV2 Feather submission output path')
     p.add_argument('--use-ema', action='store_true',
                    help='evaluate the EMA shadow from the checkpoint '
                         '(needs training with train.ema_decay > 0)')
@@ -39,6 +51,11 @@ def main(argv=None):
                         '(reference --cfg-options)')
     p.add_argument('--tiny', action='store_true',
                    help='tiny test config (for fixture runs)')
+    p.add_argument('--quant', action='store_true',
+                   help='int8 PTQ backbone serving mode (ops/quant.py): '
+                        'calibrate on the first --quant-calib-frames frames, '
+                        'then evaluate with the quantized backbone')
+    p.add_argument('--quant-calib-frames', type=int, default=8)
     p.add_argument('--device', default=None,
                    help="torch device (default: the CUDA card; 'cpu' to run "
                         'on the CPU)')
@@ -50,7 +67,8 @@ def main(argv=None):
     from ..data.av2_dataset import AV2SequenceDataset
     from ..data.loader import EvalLoader
     from ..entry import build_model, resolve_device
-    from ..eval.runner import collect_and_evaluate, run_inference
+    from ..eval.runner import (collect_and_evaluate, format_av2_submission,
+                               run_inference)
     from ..train.step import create_train_state
     from ..utils.checkpoint import CheckpointManager
     from ..utils.convert import load_reference_checkpoint
@@ -80,10 +98,41 @@ def main(argv=None):
         if args.use_ema:
             model.load_state_dict(state.ema, strict=False)
 
+    roi_masks = None
+    if args.map_root:
+        from ..eval.map_roi import build_roi_masks
+        roi_masks = build_roi_masks(dataset, args.map_root)
+        print('HD-map ROI gate:',
+              'enabled' if roi_masks is not None else
+              'no map dirs found, falling back to range gating')
+
+    quant_tree = None
+    if args.quant:
+        from ..ops.quant import quantize_detector_backbone
+        calib = [f['images'][None] for f in EvalLoader(
+            dataset, cfg, max_frames=args.quant_calib_frames, device=device)]
+        quant_tree = quantize_detector_backbone(model, calib)
+        print(f'int8 PTQ backbone: calibrated on {len(calib)} frames')
+
     loader = EvalLoader(dataset, cfg, device=device)
-    results = run_inference(cfg, model, loader, device=device)
-    collect_and_evaluate(cfg, dataset, args.results_dir, 0, 1, results,
-                         eval_range_m=args.eval_range_m)
+    results = run_inference(cfg, model, loader, device=device,
+                            quant_tree=quant_tree)
+    summary, means = collect_and_evaluate(
+        cfg, dataset, args.results_dir, 0, 1, results,
+        eval_range_m=args.eval_range_m, roi_masks=roi_masks)
+    rows = None
+    if args.submission:
+        from ..config import AV2_CLASS_NAMES
+        from ..utils.feather import write_feather
+        rows = write_feather(args.submission,
+                             format_av2_submission(results, AV2_CLASS_NAMES))
+        print(f'wrote submission: {args.submission} ({rows} rows)')
+    return dict(means=means, summary=summary, frames=len(results),
+                submission_rows=rows)
+
+
+def main(argv=None):
+    evaluate(argv)
     return 0
 
 

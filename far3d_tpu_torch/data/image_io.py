@@ -21,6 +21,9 @@ port does these itself:
   threads, no interpreter lock held), rows first, then columns.
 * ``fill_circle``: OpenCV's filled 8-connected circle (``cv2.circle`` with
   thickness -1, ``LINE_8``, no shift), row span for row span.
+* ``fill_poly``: OpenCV's filled polygon (``cv2.fillPoly`` of one contour,
+  ``LINE_8``, no shift): the outline's 8-connected lines, then the even-odd
+  scanline fill over the edges in OpenCV's 16-bit fixed point.
 
 Images are (H, W, 3) uint8 in BGR order, as OpenCV hands them out.
 """
@@ -196,3 +199,77 @@ def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int,
         err -= minus & mask
         dx += mask
         minus -= mask & 2
+
+
+_XY_SHIFT = 16                 # OpenCV's fixed point for polygon edges
+
+
+def _line8(img: np.ndarray, p0, p1, value) -> None:
+    """OpenCV's 8-connected line (``LineIterator`` left to right) from p0 to
+    p1, both inside the image."""
+    (x0, y0), (x1, y1) = p0, p1
+    dx, dy = x1 - x0, y1 - y0
+    if dx < 0:
+        x0, y0, dx, dy = x1, y1, -dx, -dy
+    sy = 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x0, y0
+    for _ in range(dx + 1):
+        img[y, x] = value
+        bump = err < 0
+        err += -2 * dy + (2 * dx if bump else 0)
+        if vert:
+            y += sy
+            x += 1 if bump else 0
+        else:
+            x += 1
+            y += sy if bump else 0
+
+
+def fill_poly(img: np.ndarray, points: np.ndarray, color: Sequence[float]
+              ) -> None:
+    """Fill one polygon in place, pixel for pixel as ``cv2.fillPoly(img,
+    [points], color)`` does: each edge drawn as OpenCV's 8-connected line,
+    then, row by row, the spans between pairs of the non-horizontal edges
+    that cross the row (an edge covers rows y0 <= y < y1, its x advancing
+    from the top vertex by (x1 - x0) / (y1 - y0), truncated, in 16-bit
+    fixed point), taken in x order, from the left x rounded up to the right
+    x rounded down: the even-odd rule. `points` (N, 2) are integer (x, y)
+    vertices, all inside the image."""
+    pts = np.asarray(points, np.int64).reshape(-1, 2)
+    h, w = img.shape[:2]
+    if len(pts) == 0:
+        return
+    if (pts < 0).any() or (pts[:, 0] >= w).any() or (pts[:, 1] >= h).any():
+        raise ValueError('fill_poly takes vertices inside the image only')
+    value = np.clip(np.rint(np.asarray(color, np.float64)[
+        :(img.shape[2] if img.ndim == 3 else 1)]), 0, 255).astype(img.dtype)
+    if img.ndim == 2:
+        value = value[0]
+    prev = np.roll(pts, 1, axis=0)
+    edges = []                                  # (y0, y1, x at y0, dx)
+    for (xa, ya), (xb, yb) in zip(prev.tolist(), pts.tolist()):
+        _line8(img, (xa, ya), (xb, yb), value)
+        if ya == yb:
+            continue
+        num, den = (xb - xa) << _XY_SHIFT, yb - ya
+        dx = abs(num) // abs(den) * (1 if (num >= 0) == (den > 0) else -1)
+        if ya < yb:
+            edges.append((ya, yb, xa << _XY_SHIFT, dx))
+        else:
+            edges.append((yb, ya, xb << _XY_SHIFT, dx))
+    if len(edges) < 2:
+        return
+    e = np.asarray(edges, np.int64)
+    for y in range(int(e[:, 0].min()), min(int(e[:, 1].max()), h)):
+        live = e[(e[:, 0] <= y) & (y < e[:, 1])]
+        xs = np.sort(live[:, 2] + (y - live[:, 0]) * live[:, 3])
+        left = (xs[0::2] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+        for xl, xr in zip(left, xs[1::2] >> _XY_SHIFT):
+            if xl < w and xr >= 0:
+                img[y, max(xl, 0):min(xr, w - 1) + 1] = value

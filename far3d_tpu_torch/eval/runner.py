@@ -4,8 +4,9 @@ reference core/apis/test.py:45-160 + argoverse2_dataset.evaluate).
 Each rank streams its contiguous, temporally ordered shard through the
 inference step, carrying the temporal memory; scene changes arrive as
 prev_exists=0 from the dataset. Results are written as per-rank files; rank
-0 concatenates them in rank order and computes the AV2 metrics. The AV2
-feather submission (pandas) is not ported.
+0 concatenates them in rank order and computes the AV2 metrics.
+``format_av2_submission`` gives the AV2 submission's columns, which
+``utils.feather.write_feather`` writes as the Feather file.
 """
 
 from __future__ import annotations
@@ -60,12 +61,13 @@ def _on_current_stream(frame, batch, done):
 
 
 def run_inference(cfg: Far3DConfig, model: Far3D, loader,
-                  device=None) -> List[Dict]:
+                  device=None, quant_tree=None) -> List[Dict]:
     """Stream one rank's shard (``data.loader.EvalLoader``) through `model`;
     returns per-frame detection dicts (boxes with gravity-centre z, their
     scores and labels, the frame's log id, timestamp and dataset index).
     Runs on the card unless `device` says otherwise; `model` must be on
-    that device."""
+    that device. `quant_tree` (``ops/quant.py:quantize_detector_backbone``)
+    serves with the int8 backbone in place of the bf16 one."""
     device = resolve_device(device)
     model_device = next(model.parameters()).device
     if model_device.type != device.type:
@@ -74,7 +76,7 @@ def run_inference(cfg: Far3DConfig, model: Far3D, loader,
     tstate = init_state(1, cfg.head, model_device)
     results = []
     for frame, batch in _upload_ahead(loader, model_device):
-        dets, tstate = infer(model, tstate, batch)
+        dets, tstate = infer(model, tstate, batch, quant_tree)
         valid = dets['valid'][0].cpu().numpy()
         boxes = dets['boxes'][0].cpu().numpy()[valid]
         scores = dets['scores'][0].cpu().numpy()[valid]
@@ -138,3 +140,29 @@ def collect_and_evaluate(cfg: Far3DConfig, dataset, results_dir: str,
                                          roi_masks=roi_masks)
     print(format_summary(summary, means))
     return summary, means
+
+
+def format_av2_submission(results: List[Dict], class_names
+                          ) -> Dict[str, np.ndarray]:
+    """Detections -> the AV2 submission's columns (argoverse2_dataset.py:
+    267-331 format_results), in the JAX package's order and dtypes: log_id,
+    timestamp_ns (int64), the box centre and size, the yaw as a quaternion
+    about z, score (float64 each) and category (str), one row a box."""
+    per_frame = [len(d['boxes']) for d in results]
+    b = np.concatenate([np.asarray(d['boxes'], np.float64).reshape(-1, 7)
+                        for d in results] or [np.zeros((0, 7))])
+    half = b[:, 6] / 2
+    return {
+        'log_id': np.repeat(np.array([d['log_id'] for d in results],
+                                     dtype=object), per_frame),
+        'timestamp_ns': np.repeat(np.array(
+            [d['timestamp_ns'] for d in results], np.int64), per_frame),
+        'tx_m': b[:, 0], 'ty_m': b[:, 1], 'tz_m': b[:, 2],
+        'length_m': b[:, 3], 'width_m': b[:, 4], 'height_m': b[:, 5],
+        'qw': np.cos(half), 'qx': np.zeros(len(b)), 'qy': np.zeros(len(b)),
+        'qz': np.sin(half),
+        'score': np.concatenate([np.asarray(d['scores'], np.float64)
+                                 for d in results] or [np.zeros(0)]),
+        'category': np.array([class_names[int(label)] for d in results
+                              for label in d['labels']], dtype=object),
+    }

@@ -53,7 +53,8 @@ class Far3D(nn.Module):
                 dn_valid: Optional[torch.Tensor] = None,       # (B, pad)
                 use_gt_depth: bool = False,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                quant_backbone: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Any]:
         """The images' dtype sets the dtype of the image side (backbone, FPN,
         2D head and the sampled feature pyramid); the query side is f32.
@@ -64,7 +65,9 @@ class Far3D(nn.Module):
         `generator` (on the activations' device); `gt_depth_bins` with
         `use_gt_depth` places the 2D proposals at their GT depth; `dn_*` are
         the denoising queries of ``train/dn.py``. The raw 2D head maps come
-        back as ``outs2d`` for the 2D loss."""
+        back as ``outs2d`` for the 2D loss. `quant_backbone`, a tree of
+        ``ops/quant.py`` (``quantize_detector_backbone``), replaces the bf16
+        backbone with the int8 one: the serving mode."""
         cfg = self.cfg
         b, n, h, w, _ = images.shape
         if not images.is_floating_point():
@@ -73,9 +76,17 @@ class Far3D(nn.Module):
             mean = torch.tensor(cfg.data.img_mean, device=images.device)
             std = torch.tensor(cfg.data.img_std, device=images.device)
             images = ((images.float() - mean) / std).to(torch.bfloat16)
-        # NHWC -> NCHW shape; on the card this is channels_last in memory
-        x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
-        feats = self.img_neck(self.img_backbone(x))      # 4 x (BN, C, Hl, Wl)
+        x = images.reshape(b * n, h, w, 3)
+        if quant_backbone is not None:
+            # int8 serving path: NHWC int8 from the normalized images
+            from ..ops.quant import quant_vovnet_forward, quantize_input
+            stages = quant_vovnet_forward(
+                cfg.backbone, quant_backbone,
+                quantize_input(x, quant_backbone['s0']))
+        else:
+            # NHWC -> NCHW shape; on the card this is channels_last in memory
+            stages = self.img_backbone(x.permute(0, 3, 1, 2))
+        feats = self.img_neck(stages)                    # 4 x (BN, C, Hl, Wl)
 
         outs2d = self.img_roi_head(feats, train)
         proposals = select_proposals(outs2d, b, n, cfg.strides,

@@ -166,19 +166,22 @@ def train_step(cfg: Far3DConfig, state: TrainState, tstate: TemporalState,
 
 def make_infer_step(cfg: Far3DConfig):
     """Streaming inference step (reference simple_test_pts, far3d.py:244-266):
-    ``infer_step(model, tstate, batch) -> (detections, tstate)``. `batch`
-    holds the model inputs (images uint8, or normalized in any float dtype)
-    on the model's device; the detections are ``decode_detections``'."""
+    ``infer_step(model, tstate, batch, quant_tree=None) -> (detections,
+    tstate)``. `batch` holds the model inputs (images uint8, or normalized in
+    any float dtype) on the model's device; the detections are
+    ``decode_detections``'. `quant_tree` (``ops/quant.py``) runs the int8
+    backbone in place of the bf16 one."""
 
     @torch.inference_mode()
     def infer_step(model: Far3D, tstate: TemporalState,
-                   batch: Dict[str, torch.Tensor]):
+                   batch: Dict[str, torch.Tensor], quant_tree=None):
         out = model(images=batch['images'], lidar2img=batch['lidar2img'],
                     intrinsics=batch['intrinsics'],
                     extrinsics=batch['extrinsics'], state=tstate,
                     prev_exists=batch['prev_exists'],
                     timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
-                    ego_pose_inv=batch['ego_pose_inv'])
+                    ego_pose_inv=batch['ego_pose_inv'],
+                    quant_backbone=quant_tree)
         dets = decode_detections(out['all_cls_scores'][-1],
                                  out['all_bbox_preds'][-1],
                                  out['query_valid'], cfg)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (the MSDA forward, its two backward
-kernels through autograd, and the fused OSA block) against their plain
+kernels through autograd, the fused OSA block and the int8 convolution)
+against their plain
 PyTorch versions, on the card, and the dataset-to-metric path there (the
 uint8 input branch against the CPU, two steps of the training runner from a
 PNG dataset on disk, a checkpoint round trip of a card state). These tests import neither jax nor the JAX package, and skip where
@@ -14,7 +15,9 @@ import torch
 
 from _msda_cases import CASES
 from _osa_cases import OSA_SHAPES, assert_osa_close, osa_operands
+from _qconv_cases import QCONV_SHAPES, port_operands
 from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
+from far3d_tpu_torch.ops.qconv import qconv, qconv_reference
 from far3d_tpu_torch.ops.msda import (msda, msda_backward_reference,
                                       msda_reference)
 
@@ -270,6 +273,24 @@ def test_cuda_osa_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 # ----------------------------------------------- the dataset-to-metric path
+@pytest.mark.cuda
+@pytest.mark.parametrize('float_out', [False, True])
+@pytest.mark.parametrize('name', sorted(QCONV_SHAPES))
+def test_cuda_qconv_matches_reference_bitwise(name, float_out, cuda_device):
+    """The int8 conv kernel against its plain version: the s32 sums are
+    exact on both sides and the epilogue is the same two rounded steps, so
+    the results are bitwise equal, int8 or f32."""
+    sh = QCONV_SHAPES[name]
+    ops = port_operands(sh, 0, cuda_device)
+    before = _build.launch_counts.get('qconv', 0)
+    got = qconv(*ops, sh['stride'], float_out)
+    torch.cuda.synchronize()
+    assert _build.launch_counts['qconv'] == before + 1
+    want = qconv_reference(*ops, sh['stride'], float_out)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 def _tiny_model(device, seed=0):
     from far3d_tpu_torch.config import tiny_test_config
     from far3d_tpu_torch.entry import build_model

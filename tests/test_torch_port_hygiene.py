@@ -18,6 +18,7 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'far3d_tpu')
 def test_import_loads_no_jax():
     code = ('import sys, far3d_tpu_torch, far3d_tpu_torch.entry, '
             'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.ops.osa_cuda, '
+            'far3d_tpu_torch.ops.qconv_cuda, far3d_tpu_torch.ops.quant, '
             'far3d_tpu_torch.train.step; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
@@ -102,6 +103,16 @@ def test_osa_cuda_wrapper_refuses_cpu_tensors():
         osa_fused(x_pad, osa.interior_mask(2, 3, 4), weights, sh)
 
 
+def test_qconv_cuda_wrapper_refuses_cpu_tensors():
+    """`qconv_cuda.qconv_cuda` never computes on the CPU (the dispatcher
+    `qconv` is what routes CPU tensors to `qconv_reference`)."""
+    from far3d_tpu_torch.ops.qconv_cuda import qconv_cuda
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
+    w = torch.zeros(8, 3, 3, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match='CUDA'):
+        qconv_cuda(x, w, torch.ones(8), torch.zeros(8))
+
+
 def _port_modules():
     return sorted('.'.join(p.relative_to(ROOT).with_suffix('').parts)
                   for p in (ROOT / 'far3d_tpu_torch').rglob('*.py')
@@ -146,7 +157,8 @@ def test_run_inference_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize('cli,argv', [
     ('train', ['--data-root', 'missing', '--tiny']),
     ('test', ['--data-root', 'missing', '--checkpoint', 'missing', '--tiny']),
-    ('overfit_demo', ['--work', 'missing', '--iters', '1'])])
+    ('overfit_demo', ['--work', 'missing', '--iters', '1']),
+    ('quant_accuracy', ['--work', 'missing', '--iters', '1'])])
 def test_cli_without_a_card_raises(monkeypatch, tmp_path, cli, argv):
     import importlib
     main = importlib.import_module(f'far3d_tpu_torch.cli.{cli}').main
