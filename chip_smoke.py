@@ -6,8 +6,8 @@
 Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
-     msda_bwd.cu, osa_fused.cu, qconv.cu), one nvcc each, all started
-     together;
+     msda_bwd.cu, osa_fused.cu, qconv.cu, ese_requant.cu), one nvcc each,
+     all started together;
   3. kernel vs plain version on the shared cases of tests/_msda_cases.py
      (f32: edge cases, crowded, production_like, rows_past_int16,
      sparse_pairs; msda_fwd, and msda_dval and msda_dattn within BWD_TOL),
@@ -77,22 +77,31 @@ Phases, each raising on failure:
      uploaded ahead, msda_fwd 6 times a frame) and collect_and_evaluate
      (finite mAP and CDS); the loader's host ms a frame and its warp's,
      ms/step and the wait on the loader, eval ms/frame and peak memory;
- 17. the fifth main path, int8 serving at full width: the int8 conv kernel
-     (csrc/qconv.cu) bitwise against its plain version at the shapes of
-     tests/_qconv_cases.py; Far3DConfig() with seeded weights, its backbone
-     calibrated on 2 frames and quantized, 8 streaming frames through
-     quant_backbone (99 qconv and 6 msda_fwd launches a frame), ms/frame
+ 17. the fifth main path, int8 serving at full width: both int8 conv
+     kernels of csrc/qconv.cu (the TMA + wgmma one and the first mma.sync
+     one) bitwise against their plain version at the shapes and channel
+     slices of tests/_qconv_cases.py, every TMA tile forced once, and the
+     OSA block tail (csrc/ese_requant.cu) bitwise against its plain version;
+     Far3DConfig() with seeded weights, its backbone calibrated on 2 frames
+     and quantized, 8 streaming frames through quant_backbone (98 qconv_tma,
+     1 qconv_mma, 16 ese_requant and 6 msda_fwd launches a frame), ms/frame
      int8, bf16, int8 in turn; the stage outputs' relative L2 error against
-     the bf16 backbone on a held-out frame; the kernel bitwise against its
-     plain version on the operands of all 99 conv sites of a frame; per
-     class of sites the kernel's device ms (warm and cold L2), its bound,
+     the bf16 backbone on a held-out frame; the kernels bitwise against
+     their plain version on the operands of all 99 conv sites of a frame as
+     the model passes them (channel slices of the blocks' concat buffers),
+     the routes counted (98 TMA, 1 mma.sync); per class of sites the
+     kernel's device ms (warm and cold L2), the first version's, its bound,
      the plain version, an im2col + torch._int_mm composite and the bf16
      cuDNN conv (yardsticks, never called by the port), summed over the
-     frame; both backbones' device busy ms (torch.profiler); then phase 16's
-     eval again through cli.test --quant --submission on its checkpoint,
-     with a drivable-area map per scene written beside the dataset, with
-     the ROI gate (--map-root) and without: mAP, CDS, the GT boxes counted,
-     the submission's rows read back from the file's footer.
+     frame; the 16 block tails against their plain version (bitwise), two
+     runs bitwise equal, and against the PyTorch sequence they replace (no
+     element more than 1 apart, at least 99.99% equal), with their device
+     ms, bytes bound and the sequence's ms; both backbones' device busy ms
+     (torch.profiler); then phase 16's eval again through cli.test --quant
+     --submission on its checkpoint, with a drivable-area map per scene
+     written beside the dataset, with the ROI gate (--map-root) and
+     without: mAP, CDS, the GT boxes counted, the submission's rows read
+     back from the file's footer.
 Then it prints one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
@@ -123,8 +132,8 @@ from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
 from far3d_tpu_torch.entry import build_model, entry, run_frame, train_entry
 from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
 from far3d_tpu_torch.models.farhead import init_state
-from far3d_tpu_torch.ops import (_build, msda_cuda, osa, osa_cuda, qconv_cuda,
-                                 quant)
+from far3d_tpu_torch.ops import (_build, ese_requant_cuda, msda_cuda, osa,
+                                 osa_cuda, qconv_cuda, quant)
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.ops.qconv import (out_size, qconv_reference,
@@ -154,6 +163,8 @@ DATA_IDLE_STEPS = 4            # then steps 8-11 with the loader idle
 SERVE_FRAMES = 8               # int8 streaming frames of phase 17
 CALIB_FRAMES = 2               # its calibration frames
 QCONV_PER_FRAME = 99           # 3 stem convs + 16 OSA blocks x (5 + concat)
+QCONV_TMA_PER_FRAME = 98       # all but the stem's first conv (ci = 3)
+BLOCKS_PER_FRAME = 16          # OSA blocks: one ese_requant each
 QUANT_REL_L2 = 0.08            # tests/test_quant.py:88-91, printed beside
 # The eight fused blocks against the model's own modules: the model rounds
 # each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
@@ -1128,19 +1139,72 @@ def dataset_path(cfg, dev, card, workdir):
 
 
 def qconv_small_shapes(dev):
-    """Phase 17a: the int8 conv kernel against qconv_reference, bitwise, at
-    the shapes of tests/_qconv_cases.py, both epilogues."""
+    """Phase 17a: both int8 conv kernels against qconv_reference, bitwise:
+    the shapes of tests/_qconv_cases.py through the routing wrapper (both
+    epilogues), each also through the first (mma.sync) kernel; channel
+    slices in and out; every tile the TMA kernel is built for, forced; and
+    the block tail against its plain version on tests/_qconv_cases.py's
+    ESE_CASES, two runs bitwise equal."""
     shared = shared_cases('_qconv_cases')
+    routes = {'tma': 0, 'mma': 0}
     for name, sh in sorted(shared.QCONV_SHAPES.items()):
         ops = shared.port_operands(sh, 0, dev)
         for float_out in (False, True):
+            want = qconv_reference(*ops, sh['stride'], float_out)
             got = qconv_cuda.qconv_cuda(*ops, sh['stride'], float_out)
+            first = qconv_cuda.qconv_mma(*ops, sh['stride'], float_out)
             torch.cuda.synchronize()
-            if not torch.equal(got, qconv_reference(*ops, sh['stride'],
-                                                    float_out)):
+            routes[qconv_cuda.route(ops[0], ops[1], sh['stride'], got)] += 1
+            if not (torch.equal(got, want) and torch.equal(first, want)):
                 raise AssertionError(f'qconv {name} float_out={float_out}: '
                                      'not bitwise equal to the plain version')
-        log(f'  {name} {sh}: int8 and f32 epilogues bitwise equal')
+    for name, sh in sorted(shared.QCONV_SLICES.items()):
+        for float_out in (False, True):
+            x, w, a, b, out_buf, out = shared.slice_operands(sh, 0, dev,
+                                                             float_out)
+            qconv_cuda.qconv_cuda(x, w, a, b, sh['stride'], float_out,
+                                  out=out)
+            torch.cuda.synchronize()
+            routes[qconv_cuda.route(x, w, sh['stride'], out)] += 1
+            rest = torch.cat([out_buf[..., :sh['out_off']],
+                              out_buf[..., sh['out_off'] + sh['co']:]], -1)
+            if not (torch.equal(out, qconv_reference(
+                    x, w, a, b, sh['stride'], float_out))
+                    and bool((rest == shared.SENTINEL).all())):
+                raise AssertionError(f'qconv slices {name} float_out='
+                                     f'{float_out}: not bitwise equal, or '
+                                     'written outside its slice')
+    plans = 0
+    for (wgs, float_out), widths in sorted(qconv_cuda.TMA_WIDTHS.items()):
+        for bn in widths:
+            sh = dict(n=2, h=7, w=11, ci=224, co=bn + 16, k=3, stride=1)
+            ops = shared.port_operands(sh, 3, dev)
+            bw, bh = qconv_cuda.spatial_box(7, 11, 64 * wgs)
+            plan = qconv_cuda.TmaPlan(wgs, bn, bw, bh,
+                                      -(-11 // bw) * -(-7 // bh))
+            got = qconv_cuda.qconv_tma(*ops, 1, float_out, plan=plan)
+            torch.cuda.synchronize()
+            if not torch.equal(got, qconv_reference(*ops, 1, float_out)):
+                raise AssertionError(f'qconv_tma {plan} float_out='
+                                     f'{float_out}: not bitwise equal')
+            plans += 1
+    log(f'  {len(shared.QCONV_SHAPES)} shapes x 2 epilogues and '
+        f'{len(shared.QCONV_SLICES)} slice cases x 2: both kernels bitwise '
+        f'equal to the plain version (routed: {routes["tma"]} TMA, '
+        f'{routes["mma"]} mma.sync); all {plans} TMA tiles forced, bitwise '
+        'equal')
+    for name, case in sorted(shared.ESE_CASES.items()):
+        y, gate, r_out, x_id, s_id, out_buf, out = shared.ese_operands(
+            case, 0, dev)
+        got = quant.ese_requant(y, gate, r_out, x_id, s_id, out)
+        again = quant.ese_requant(y, gate, r_out, x_id, s_id)
+        torch.cuda.synchronize()
+        want = quant.ese_requant_reference(y, gate, r_out, x_id, s_id)
+        if not (torch.equal(got, want) and torch.equal(again, got)):
+            raise AssertionError(f'ese_requant {name}: not bitwise equal to '
+                                 'the plain tail, or not repeatable')
+    log(f'  ese_requant on {len(shared.ESE_CASES)} cases: bitwise equal to '
+        'the plain tail, two runs bitwise equal')
 
 
 def qconv_site_names(bcfg):
@@ -1156,21 +1220,38 @@ def qconv_site_names(bcfg):
     return names
 
 
-def record_qconv_sites(fn):
-    """Run `fn` once with ops.quant's qconv wrapped; returns the operands of
-    every call, (x, w, a, b, stride, float_out), in call order."""
-    sites, real = [], quant.qconv
+def record_sites(fn):
+    """Run `fn` once with ops.quant's qconv and ese_requant wrapped; returns
+    the operands of every call of each, in call order: qconv's (x, w, a, b,
+    stride, float_out, out, channel_sums), ese_requant's (y, gate, r_out,
+    x_id, s_id, out)."""
+    sites, tails = [], []
+    real_conv, real_tail = quant.qconv, quant.ese_requant
 
-    def recording(x, w, a, b, stride=1, float_out=False):
-        sites.append((x, w, a, b, stride, float_out))
-        return real(x, w, a, b, stride, float_out)
+    def conv(x, w, a, b, stride=1, float_out=False, out=None,
+             channel_sums=False):
+        sites.append((x, w, a, b, stride, float_out, out, channel_sums))
+        return real_conv(x, w, a, b, stride, float_out, out, channel_sums)
 
-    quant.qconv = recording
+    def tail(y, gate, r_out, x_id=None, s_id=None, out=None):
+        tails.append((y, gate, r_out, x_id, s_id, out))
+        return real_tail(y, gate, r_out, x_id, s_id, out)
+
+    quant.qconv, quant.ese_requant = conv, tail
     try:
         fn()
     finally:
-        quant.qconv = real
-    return sites
+        quant.qconv, quant.ese_requant = real_conv, real_tail
+    return sites, tails
+
+
+def like_slice(t):
+    """A new buffer laid out as `t` (a contiguous tensor or a channel slice
+    of a wider NHWC buffer), and its slice at the same channel offset."""
+    pitch = qconv_cuda.pitch_of(t, 'out')
+    off = t.storage_offset() % pitch
+    buf = torch.empty((*t.shape[:3], pitch), dtype=t.dtype, device=t.device)
+    return buf[..., off:off + t.shape[3]]
 
 
 def int_mm_composite(x, w, a, b, stride, float_out):
@@ -1198,34 +1279,47 @@ def int_mm_composite(x, w, a, b, stride, float_out):
 
 
 def qconv_sites_check(sites, names):
-    """Phase 17c: the kernel against its plain version, bitwise, on the
-    operands of every conv site of one full-width frame."""
-    for name, (x, w, a, b, stride, float_out) in zip(names, sites):
-        got = qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out)
+    """Phase 17c: the kernels against their plain version, bitwise, on the
+    operands of every conv site of one full-width frame as the model passes
+    them (channel slices of the blocks' concat buffers, outputs into
+    slices); the concat convs' channel sums within f32 rounding of the plain
+    sums. Returns the launches of each kernel."""
+    routes = {'tma': 0, 'mma': 0}
+    for name, (x, w, a, b, stride, float_out, out, sums) in zip(names, sites):
+        o2 = like_slice(out) if out is not None else None
+        got = qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out, o2, sums)
         torch.cuda.synchronize()
-        if not torch.equal(got, qconv_reference(x, w, a, b, stride,
-                                                float_out)):
+        routes[qconv_cuda.route(x, w, stride, got[0] if sums else got)] += 1
+        want = qconv_reference(x, w, a, b, stride, float_out,
+                               channel_sums=sums)
+        ok = (torch.equal(got[0], want[0]) and torch.allclose(
+            got[1], want[1], rtol=1e-5, atol=1e-3)) if sums else \
+            torch.equal(got, want)
+        if not ok:
             raise AssertionError(f'qconv at {name} {tuple(x.shape)} -> '
                                  f'{tuple(w.shape)}: not bitwise equal')
-    log(f'  all {len(sites)} conv sites of the frame: the kernel bitwise '
-        'equal to the plain version (float64 unfold on the card)')
+    log(f'  all {len(sites)} conv sites of the frame, on the operands as the '
+        'model passes them: the kernels bitwise equal to the plain version '
+        f'(float64 unfold on the card); routes: {routes["tma"]} TMA + wgmma, '
+        f'{routes["mma"]} mma.sync')
+    return routes
 
 
 def qconv_site_times(sites, names, card):
     """Phase 17d: per class of identical sites, the kernel's device ms (warm
-    and cold L2), its bound, the plain version's, the im2col + _int_mm
-    composite's and the bf16 cuDNN conv's of the same shape; and the sums
-    over the frame's sites."""
+    and cold L2) on the operands as the model passes them, the first
+    (mma.sync) kernel's warm ms, the bound, the plain version's, the im2col
+    + _int_mm composite's and the bf16 cuDNN conv's of the same shape; and
+    the sums over the frame's sites."""
     classes = {}
     for name, site in zip(names, sites):
-        x, w, _, _, stride, float_out = site
+        x, w, _, _, stride, float_out = site[:6]
         key = (tuple(x.shape), tuple(w.shape), stride, float_out)
         classes.setdefault(key, (site, []))[1].append(name)
-    tot = dict(ms=0.0, cold=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0,
-               bound_ms=0.0, t_ops=0.0, t_bytes=0.0, ops=0)
-    rows = []
+    tot = dict(ms=0.0, cold=0.0, first_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               cudnn_ms=0.0, bound_ms=0.0, t_ops=0.0, t_bytes=0.0, ops=0)
     for (xs, ws, stride, float_out), (site, members) in classes.items():
-        x, w, a, b = site[:4]
+        x, w, a, b, _, _, out, sums = site
         n, h, wd, ci = xs
         co, k = ws[0], ws[1]
         ho, wo = out_size(h, k, stride), out_size(wd, k, stride)
@@ -1234,15 +1328,24 @@ def qconv_site_times(sites, names, card):
         nbytes = x.numel() + w.numel() + 8 * co + out_bytes
         t_ops = ops / INT8_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        kern = lambda: qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out)
+        o2 = like_slice(out) if out is not None else None
+        kern = lambda: qconv_cuda.qconv_cuda(x, w, a, b, stride, float_out,
+                                             o2, sums)
+        # the first kernel as the backbone ran it before the block tail had a
+        # kernel: no channel sums (the mean was a PyTorch pass of its own)
+        first = lambda: qconv_cuda.qconv_mma(x, w, a, b, stride, float_out,
+                                             o2)
         lib = int_mm_composite(x, w, a, b, stride, float_out)
-        if not torch.equal(lib(), kern()):
+        got = kern()[0] if sums else kern()
+        route = qconv_cuda.route(x, w, stride, got)
+        if not torch.equal(lib(), got):
             raise AssertionError(f'the _int_mm composite disagrees at '
                                  f'{members[0]}')
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)      # channels last
+        xb = x.contiguous().permute(0, 3, 1, 2).to(torch.bfloat16)  # NHWC
         wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
         cudnn = lambda: F.conv2d(xb, wb, None, stride, (k - 1) // 2)
         t = dict(ms=device_ms(kern, 20), cold=cold_l2_ms(kern, 10),
+                 first_ms=device_ms(first, 20),
                  plain_ms=device_ms(lambda: qconv_reference(
                      x, w, a, b, stride, float_out), 1),
                  library_ms=device_ms(lib, 10), cudnn_ms=device_ms(cudnn, 20),
@@ -1250,12 +1353,11 @@ def qconv_site_times(sites, names, card):
                  ops=ops)
         for key in tot:
             tot[key] += len(members) * t[key]
-        rows.append((members, t))
         log(f'  {members[0]}{" .. " + members[-1] if len(members) > 1 else ""}'
             f' (x{len(members)}): x {xs} -> co {co}, k {k}, stride {stride}'
-            f'{", f32 out" if float_out else ""}: {t["ms"]:.4f} ms warm, '
-            f'{t["cold"]:.4f} cold, {ops / t["ms"] / 1e9:.1f} TOPS; bound '
-            f'{t["bound_ms"]:.4f} ('
+            f'{", f32 out" if float_out else ""}, {route}: {t["ms"]:.4f} ms '
+            f'warm, {t["cold"]:.4f} cold, {ops / t["ms"] / 1e9:.1f} TOPS; '
+            f'first version {t["first_ms"]:.4f}; bound {t["bound_ms"]:.4f} ('
             f'{"operations" if t_ops >= t_bytes else "bytes"}); plain '
             f'{t["plain_ms"]:.3f}; im2col + _int_mm {t["library_ms"]:.4f}; '
             f'bf16 cuDNN conv {t["cudnn_ms"]:.4f} [{card}]')
@@ -1263,21 +1365,98 @@ def qconv_site_times(sites, names, card):
         else 'bytes'
     log(f'  the frame\'s {len(sites)} sites: qconv {tot["ms"]:.4f} ms warm, '
         f'{tot["cold"]:.4f} ms cold L2, {tot["ops"] / 1e12:.3f} T int8 '
-        f'operations, {tot["ops"] / tot["ms"] / 1e9:.1f} TOPS; bound '
-        f'{tot["bound_ms"]:.4f} ms (operations alone '
-        f'{tot["t_ops"]:.4f}); plain {tot["plain_ms"]:.2f} ms; im2col + '
-        f'_int_mm {tot["library_ms"]:.4f} ms; bf16 cuDNN convs '
-        f'{tot["cudnn_ms"]:.4f} ms [{card}]')
+        f'operations, {tot["ops"] / tot["ms"] / 1e9:.1f} TOPS; first version '
+        f'(mma.sync on every site) {tot["first_ms"]:.4f} ms; bound '
+        f'{tot["bound_ms"]:.4f} ms (operations alone {tot["t_ops"]:.4f}); '
+        f'plain {tot["plain_ms"]:.2f} ms; im2col + _int_mm '
+        f'{tot["library_ms"]:.4f} ms; bf16 cuDNN convs {tot["cudnn_ms"]:.4f} '
+        f'ms [{card}]')
     return tot
+
+
+def torch_tail(y, x_q, blk):
+    """Yardstick: the block tail as the port ran it before the kernel, a
+    sequence of PyTorch passes from the f32 concat output (the mean, the
+    gate, the gate product, the identity add, the requantization), out of
+    place. Never called by the port."""
+    s = y.mean(dim=(1, 2))
+    g = s @ blk['ese_w'] + blk['ese_b']
+    v = y * ((g + 3.0).clamp(0.0, 6.0) / 6.0)[:, None, None, :]
+    if x_q is not None:
+        v = v + x_q * blk['s_id']
+    return (v * blk['r_out']).round().clamp(0, 127).to(torch.int8)
+
+
+def ese_tail_check_and_times(tails, q, bcfg, card):
+    """Phase 17e: each of the frame's 16 block tails on its own operands:
+    the kernel against its plain version on the same gate (bitwise), two
+    runs bitwise equal, and against the PyTorch sequence it replaces, which
+    sums the eSE mean in another order (no element more than 1 apart, at
+    least 99.99% equal); device ms (warm, cold L2), the bytes bound, the
+    plain version's and the sequence's ms, summed over the frame."""
+    names = [f'stage{si + 2}_block{bi}'
+             for si, blocks in enumerate(bcfg.blocks_per_stage)
+             for bi in range(blocks)]
+    if len(tails) != len(names):
+        raise AssertionError(f'{len(tails)} block tails, {len(names)} blocks')
+    tot = dict(ms=0.0, cold=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               nbytes=0, elems=0, diff=0)
+    max_diff = 0
+    for name, (y, gate, r_out, x_id, s_id, out) in zip(names, tails):
+        o2 = like_slice(out) if out is not None else None
+        kern = lambda: quant.ese_requant(y, gate, r_out, x_id, s_id, o2)
+        got = kern().clone()
+        again = kern()
+        plain = quant.ese_requant_reference(y, gate, r_out, x_id, s_id)
+        seq = torch_tail(y, x_id, q[name])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(again, got)):
+            raise AssertionError(f'ese_requant at {name}: not bitwise equal '
+                                 'to the plain tail, or not repeatable')
+        diff = (got.int() - seq.int()).abs()
+        max_diff = max(max_diff, int(diff.max()))
+        nbytes = y.numel() * 4 + (x_id.numel() if x_id is not None else 0) \
+            + got.numel() + gate.numel() * 4
+        t = dict(ms=device_ms(kern, 20), cold=cold_l2_ms(kern, 10),
+                 plain_ms=device_ms(lambda: quant.ese_requant_reference(
+                     y, gate, r_out, x_id, s_id), 5),
+                 library_ms=device_ms(lambda: torch_tail(y, x_id, q[name]),
+                                      5),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes,
+                 elems=got.numel(), diff=int((diff > 0).sum()))
+        for key in tot:
+            tot[key] += t[key]
+        log(f'  {name} tail: y {tuple(y.shape)}'
+            f'{", identity" if x_id is not None else ""}: ese_requant '
+            f'{t["ms"]:.4f} ms warm, {t["cold"]:.4f} cold; bound '
+            f'{t["bound_ms"]:.4f} (bytes); the PyTorch sequence '
+            f'{t["library_ms"]:.4f}; {t["diff"]} elements 1 apart from it '
+            f'[{card}]')
+    share = 1.0 - tot['diff'] / tot['elems']
+    if max_diff > 1 or share < 0.9999:
+        raise AssertionError(f'ese_requant against the PyTorch sequence: max '
+                             f'difference {max_diff}, {share:.6f} equal')
+    log(f'  ese_requant, the frame\'s {len(tails)} block tails: bitwise equal '
+        'to the plain tail and repeatable; against the PyTorch sequence it '
+        f'replaces (the mean summed in another order) {tot["diff"]} of '
+        f'{tot["elems"]} elements differ ({share:.8f} equal), none by more '
+        f'than {max_diff}; '
+        f'{tot["ms"]:.4f} ms warm, {tot["cold"]:.4f} ms cold L2; bound '
+        f'{tot["bound_ms"]:.4f} ms ({tot["nbytes"] / 1e9:.3f} GB, bytes); '
+        f'plain {tot["plain_ms"]:.4f} ms; the PyTorch sequence '
+        f'{tot["library_ms"]:.4f} ms [{card}]')
+    return dict(tot, equal_share=share, max_diff=max_diff)
 
 
 def device_busy(fn, reps=3):
     """Device busy ms of one call of `fn` (the sum of its kernels' device
     times under torch.profiler, mean of `reps` calls), and of it the
-    kernels whose name holds 'qconv'."""
+    kernels whose name holds 'qconv' and those whose name holds
+    'ese_requant'."""
     parts = launch_breakdown(fn, reps)
     total = sum(ms for _, ms in parts)
-    return total, sum(ms for name, ms in parts if 'qconv' in name), parts
+    return (total, sum(ms for name, ms in parts if 'qconv' in name),
+            sum(ms for name, ms in parts if 'ese_requant' in name), parts)
 
 
 def serving_path(cfg, dev, card):
@@ -1318,7 +1497,10 @@ def serving_path(cfg, dev, card):
     int8_frame_ms, dets = frames(q)
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
-    want = {'qconv': QCONV_PER_FRAME * SERVE_FRAMES,
+    want = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME * SERVE_FRAMES,
+            qconv_cuda.NAMES['mma']: (QCONV_PER_FRAME - QCONV_TMA_PER_FRAME)
+            * SERVE_FRAMES,
+            ese_requant_cuda.NAME: BLOCKS_PER_FRAME * SERVE_FRAMES,
             'msda_fwd': LAYERS_PER_FRAME * SERVE_FRAMES}
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f'launches on the int8 path {launches}, '
@@ -1326,8 +1508,10 @@ def serving_path(cfg, dev, card):
     bf16_frame_ms, _ = frames(None)
     int8_again_ms, _ = frames(q)
     log(f'  {SERVE_FRAMES} streaming frames through quant_backbone: launches '
-        f'{launches} ({QCONV_PER_FRAME} qconv and {LAYERS_PER_FRAME} msda_fwd '
-        f'a frame); top score {dets["scores"][0, 0].item():.4f}, valid '
+        f'{launches} ({QCONV_TMA_PER_FRAME} qconv_tma, '
+        f'{QCONV_PER_FRAME - QCONV_TMA_PER_FRAME} qconv_mma, '
+        f'{BLOCKS_PER_FRAME} ese_requant and {LAYERS_PER_FRAME} msda_fwd a '
+        f'frame); top score {dets["scores"][0, 0].item():.4f}, valid '
         f'{int(dets["valid"].sum())}')
     log(f'  ms/frame (median of frames 2..{SERVE_FRAMES - 1}), in turn: int8 '
         f'{int8_frame_ms:.2f}, bf16 {bf16_frame_ms:.2f}, int8 '
@@ -1351,30 +1535,38 @@ def serving_path(cfg, dev, card):
             + f' (tests/test_quant.py bound at the tiny size: {QUANT_REL_L2})')
 
         names = qconv_site_names(cfg.backbone)
-        sites = record_qconv_sites(
+        sites, tails = record_sites(
             lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
         if len(sites) != len(names):
             raise AssertionError(f'{len(sites)} conv sites, {len(names)} '
                                  'names')
-        qconv_sites_check(sites, names)
+        routes = qconv_sites_check(sites, names)
+        if routes['tma'] != QCONV_TMA_PER_FRAME:
+            raise AssertionError(f'{routes} of the frame\'s conv sites, '
+                                 f'expected {QCONV_TMA_PER_FRAME} on TMA')
         site_t = qconv_site_times(sites, names, card)
-        del sites
+        tail_t = ese_tail_check_and_times(tails, q, cfg.backbone, card)
+        del sites, tails
         torch.cuda.empty_cache()
-        int8_bb, int8_qconv, int8_parts = device_busy(
+        int8_bb, int8_qconv, int8_tail, int8_parts = device_busy(
             lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
-        bf16_bb, _, bf16_parts = device_busy(
+        bf16_bb, _, _, bf16_parts = device_busy(
             lambda: model.img_backbone(x_nchw))
     log(f'  backbone device busy ms (torch.profiler, mean of 3): int8 '
-        f'{int8_bb:.4f} (of it qconv {int8_qconv:.4f}, the rest '
-        f'{int8_bb - int8_qconv:.4f}), bf16 cuDNN {bf16_bb:.4f} [{card}]')
+        f'{int8_bb:.4f} (of it qconv {int8_qconv:.4f}, ese_requant '
+        f'{int8_tail:.4f}, the rest {int8_bb - int8_qconv - int8_tail:.4f}), '
+        f'bf16 cuDNN {bf16_bb:.4f} [{card}]')
     log('  int8 backbone, top kernels: ' + '; '.join(
         f'{name[:60]} {ms:.4f}' for name, ms in int8_parts[:6]))
     log('  bf16 backbone, top kernels: ' + '; '.join(
         f'{name[:60]} {ms:.4f}' for name, ms in bf16_parts[:6]))
-    return dict(launches=launches['qconv'], int8_frame_ms=int8_frame_ms,
+    return dict(launches={k: launches[k] for k in
+                          ('qconv_tma', 'qconv_mma', 'ese_requant')},
+                site_routes=routes, int8_frame_ms=int8_frame_ms,
                 int8_again_ms=int8_again_ms, bf16_frame_ms=bf16_frame_ms,
                 rel_l2=rel, int8_backbone_ms=int8_bb,
-                int8_qconv_ms=int8_qconv, bf16_backbone_ms=bf16_bb, **site_t)
+                int8_qconv_ms=int8_qconv, int8_tail_ms=int8_tail,
+                bf16_backbone_ms=bf16_bb, tail=tail_t, **site_t)
 
 
 def write_drivable_maps(workdir):
@@ -1633,10 +1825,10 @@ def main():
         data = dataset_path(cfg, dev, card, Path(tmp))
         torch.cuda.empty_cache()
 
-        log('== phase 17: the int8 serving path: qconv at small and awkward '
-            'shapes, Far3DConfig() through quant_backbone, every conv site, '
-            'times, and phase 16\'s eval through cli.test --quant --map-root '
-            '--submission')
+        log('== phase 17: the int8 serving path: qconv and ese_requant at '
+            'small and awkward shapes, Far3DConfig() through quant_backbone, '
+            'every conv site and block tail, times, and phase 16\'s eval '
+            'through cli.test --quant --map-root --submission')
         qconv_small_shapes(dev)
         serve = serving_path(cfg, dev, card)
         torch.cuda.empty_cache()
@@ -1721,10 +1913,17 @@ def main():
         'replaces': 'far3d_tpu/ops/quant.py:228',
         'replaces_note': 'an XLA s8 convolution with a fused epilogue, no '
                          'Pallas kernel',
-        'launches': serve['launches'], 'launches_per_frame': QCONV_PER_FRAME,
+        'launches': serve['launches']['qconv_tma']
+        + serve['launches']['qconv_mma'],
+        'launches_by_route': {'tma_wgmma': serve['launches']['qconv_tma'],
+                              'mma_sync': serve['launches']['qconv_mma']},
+        'site_routes': serve['site_routes'],
+        'launches_per_frame': QCONV_PER_FRAME,
         'max_abs_err': 0.0, 'bitwise_sites': QCONV_PER_FRAME,
         'ms': serve['ms'], 'kernel_ms': serve['ms'],
-        'ms_cold_l2': serve['cold'], 'plain_ms': serve['plain_ms'],
+        'ms_cold_l2': serve['cold'], 'first_version_ms': serve['first_ms'],
+        'first_version': 'the mma.sync kernel of the same file on every site',
+        'plain_ms': serve['plain_ms'],
         'plain': 'qconv_reference: float64 unfold x weights, the same '
                  'epilogue (sums over the frame\'s 99 sites)',
         'bound_ms': serve['bound_ms'], 'bound_by': serve['bound_by'],
@@ -1741,6 +1940,28 @@ def main():
         'ms_per_frame_bf16': serve['bf16_frame_ms'],
         'stage_rel_l2': serve['rel_l2'],
         'cli_test': serve_cli,
+    }, {
+        'name': 'ese_requant', **common,
+        'source': 'far3d_tpu_torch/csrc/ese_requant.cu',
+        'replaces': 'far3d_tpu/ops/quant.py:252',
+        'replaces_note': 'the eSE gate, identity add and requantize that XLA '
+                         'fuses after the concat conv, no Pallas kernel',
+        'launches': serve['launches']['ese_requant'],
+        'launches_per_frame': BLOCKS_PER_FRAME,
+        'max_abs_err': 0.0, 'bitwise_repeatable': True,
+        'torch_sequence_equal_share': serve['tail']['equal_share'],
+        'torch_sequence_max_abs_err': serve['tail']['max_diff'],
+        'ms': serve['tail']['ms'], 'kernel_ms': serve['tail']['ms'],
+        'ms_cold_l2': serve['tail']['cold'],
+        'plain_ms': serve['tail']['plain_ms'],
+        'plain': 'ese_requant_reference: the PyTorch passes from the same '
+                 'gate (sums over the frame\'s 16 blocks)',
+        'bound_ms': serve['tail']['bound_ms'], 'bound_by': 'bytes',
+        'gb_per_frame': serve['tail']['nbytes'] / 1e9,
+        'library_ms': serve['tail']['library_ms'],
+        'library': 'the PyTorch sequence it replaces (mean, gate, product, '
+                   'identity add, requantize), summed over the 16 blocks',
+        'int8_backbone_ese_requant_ms': serve['int8_tail_ms'],
     }]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

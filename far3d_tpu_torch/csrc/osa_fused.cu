@@ -42,11 +42,9 @@
 // Not done yet: one A slab shared by the nine taps, weights shared across a
 // cluster, a persistent schedule that evens out the last wave of tiles.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -95,84 +93,6 @@ struct HaloArgs {
   int ld[MAX_HALO_BUFS];
   int n, r, rp, halo;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Spin until the barrier's phase of this parity has completed. A wait that
-// outlasts about a second (no stage of this kernel takes a millisecond) can
-// only be a lost signal: it traps, so that the launch reports an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1LL << 31)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2) : "memory");
-}
-
-// Shared-memory matrix descriptor of wgmma for the 128-byte swizzle: the
-// start address, the leading and the stride byte offsets (all in 16-byte
-// units) and the swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int lbo_bytes,
-                                               int sbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(lbo_bytes >> 4) << 16)
-         | (static_cast<uint64_t>(sbo_bytes >> 4) << 32)
-         | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 
 // D (64 x 192, f32, 96 registers a thread) (+)= A (64 x 16, K-major in shared
 // memory) x B (16 x 192, channel-major in shared memory: trans-b = 1).
@@ -249,8 +169,7 @@ osa_stage_kernel(const __grid_constant__ StageMaps maps, const StageArgs p) {
       mbar_init(full + 8 * s, 1);                    // the producer's expect_tx
       mbar_init(empty + 8 * s, CONSUMERS / 32);      // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -407,24 +326,6 @@ __global__ void osa_zero_halo_kernel(const HaloArgs p) {
     reinterpret_cast<uint4*>(buf + (cam * p.rp + row) * ld)[ch] =
         make_uint4(0u, 0u, 0u, 0u);
   }
-}
-
-// cuTensorMapEncodeTiled lives in libcuda; it is looked up once at run time,
-// so that the kernel library links against the CUDA runtime alone.
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
 }
 
 // A bf16 tensor of `rank` dimensions (innermost first) with a box of the

@@ -23,7 +23,8 @@ from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-SOURCES = ('msda_fwd', 'msda_bwd', 'osa_fused', 'qconv')     # every csrc/<name>.cu
+SOURCES = ('msda_fwd', 'msda_bwd', 'osa_fused', 'qconv',   # every csrc/<name>.cu
+           'ese_requant')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -13,8 +13,13 @@ Three pieces, as in the JAX package:
    does, so the same amax gives bitwise the same tree.
 3. ``quant_vovnet_forward``: int8 convs with the scale, ReLU and requantize
    epilogue fused in (``ops/qconv.py``, the ``csrc/qconv.cu`` kernel on the
-   card), eSE and the identity add in float32, int8 activations NHWC from
-   the stem to the stage outputs, which are dequantized to bf16.
+   card), eSE and the identity add in float32 (``ese_requant``, the
+   ``csrc/ese_requant.cu`` kernel on the card), int8 activations NHWC from
+   the stem to the stage outputs, which are dequantized to bf16. An OSA
+   block's concat is one int8 buffer that its convs read and write in
+   place: its input in slice 0 (where the block before it in the stage, or
+   the stem's last conv, wrote it), layer ``li`` reading slice ``li`` and
+   writing slice ``li + 1``, the concat conv reading it whole.
 
 Activations are per tensor (post-ReLU, so [0, 127]; the signed stem input
 [-127, 127]), weights per output channel.
@@ -33,7 +38,7 @@ float32 tensors.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,7 +47,7 @@ from torch import nn
 
 from ..config import BackboneConfig
 from ..models.vovnet import VoVNet
-from .qconv import qconv
+from .qconv import out_size, qconv
 
 POOL_FILL = -128          # the int8 max pool's padding value
 
@@ -217,26 +222,77 @@ def quantize_detector_backbone(model, calib_images: Sequence[torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def _qconv(qc: Dict, x_q: torch.Tensor, stride: int = 1,
-           float_out: bool = False) -> torch.Tensor:
+           float_out: bool = False, out: Optional[torch.Tensor] = None,
+           channel_sums: bool = False):
     return qconv(x_q, qc['w'].permute(3, 0, 1, 2).contiguous(), qc['a'],
-                 qc['b'], stride, float_out)
+                 qc['b'], stride, float_out, out, channel_sums)
 
 
-def _qosa(blk: Dict, x_q: torch.Tensor, layers: int,
-          identity: bool) -> torch.Tensor:
-    outs = [x_q]
-    h = x_q
+def _concat_buffer(blk: Dict, n: int, h: int, w: int,
+                   device) -> torch.Tensor:
+    """A block's concat buffer: (n, h, w, C_in + layers * conv channels)
+    int8, uninitialised."""
+    return torch.empty((n, h, w, blk['concat']['w'].shape[2]), device=device,
+                       dtype=torch.int8)
+
+
+def ese_gate(blk: Dict, sums: torch.Tensor, hw: int) -> torch.Tensor:
+    """The eSE gate (n, C) from the concat conv's channel sums over h*w
+    pixels: hsig(mean @ ese_w + ese_b), hsig(g) = clip(g + 3, 0, 6) / 6."""
+    g = (sums / hw) @ blk['ese_w'] + blk['ese_b']
+    return (g + 3.0).clamp(0.0, 6.0) / 6.0
+
+
+def ese_requant_reference(y: torch.Tensor, gate: torch.Tensor,
+                          r_out: torch.Tensor,
+                          x_id: Optional[torch.Tensor] = None,
+                          s_id: Optional[torch.Tensor] = None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the block tail: ``clip(round((y * gate [+ x_id *
+    s_id]) * r_out), 0, 127)`` as int8, each product and sum rounded in
+    float32, round half to even; into `out` when given."""
+    v = y * gate[:, None, None, :]
+    if x_id is not None:
+        v.add_(x_id * s_id)
+    q = v.mul_(r_out).round_().clamp_(0, 127).to(torch.int8)
+    return q if out is None else out.copy_(q)
+
+
+def ese_requant(y: torch.Tensor, gate: torch.Tensor, r_out: torch.Tensor,
+                x_id: Optional[torch.Tensor] = None,
+                s_id: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block tail: the plain version for a CPU tensor, the CUDA kernel
+    (``ops/ese_requant_cuda.py``) for a CUDA one."""
+    if y.is_cuda:
+        from .ese_requant_cuda import ese_requant_cuda
+        return ese_requant_cuda(y, gate, r_out, x_id, s_id, out)
+    return ese_requant_reference(y, gate, r_out, x_id, s_id, out)
+
+
+def _qosa(blk: Dict, x_q: torch.Tensor, layers: int, identity: bool,
+          out: Optional[torch.Tensor] = None,
+          buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One int8 OSA block. `buf` is its concat buffer with x_q in slice 0
+    already (a new one, x_q copied in, when None); the output goes into
+    `out` when given (slice 0 of the next block's buffer), else into a new
+    tensor."""
+    n, h, w, cin = x_q.shape
+    if buf is None:
+        buf = _concat_buffer(blk, n, h, w, x_q.device)
+        buf[..., :cin].copy_(x_q)
+    x_q = buf[..., :cin]
+    sc = blk['layer0']['w'].shape[3]
+    src = x_q
     for li in range(layers):
-        h = _qconv(blk[f'layer{li}'], h)
-        outs.append(h)
-    y = _qconv(blk['concat'], torch.cat(outs, dim=-1), float_out=True)
-    # eSE in float32 on the f32, post-ReLU concat conv (updated in place)
-    s = y.mean(dim=(1, 2))
-    g = s @ blk['ese_w'] + blk['ese_b']
-    y.mul_(((g + 3.0).clamp(0.0, 6.0) / 6.0)[:, None, None, :])
+        dst = buf[..., cin + li * sc:cin + (li + 1) * sc]
+        _qconv(blk[f'layer{li}'], src, out=dst)
+        src = dst
+    y, sums = _qconv(blk['concat'], buf, float_out=True, channel_sums=True)
+    gate = ese_gate(blk, sums, h * w)
     if identity:
-        y.add_(x_q * blk['s_id'])
-    return y.mul_(blk['r_out']).round_().clamp_(0, 127).to(torch.int8)
+        return ese_requant(y, gate, blk['r_out'], x_q, blk['s_id'], out)
+    return ese_requant(y, gate, blk['r_out'], out=out)
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:
@@ -269,15 +325,30 @@ def quant_vovnet_forward(cfg: BackboneConfig, q: Dict,
     shape as ``VoVNet.forward`` returns them (channels last in memory)."""
     x = _qconv(q['stem1'], x_q, stride=2)
     x = _qconv(q['stem2'], x)
-    x = _qconv(q['stem3'], x, stride=2)
     outputs = []
     for si in range(4):
         stage = si + 2
-        if stage != 2:
+        names = [f'stage{stage}_block{bi}'
+                 for bi in range(cfg.blocks_per_stage[si])]
+        n = x.shape[0]
+        if stage == 2:                # stem3 writes into the first buffer
+            k, cin = q['stem3']['w'].shape[0], q['stem3']['w'].shape[3]
+            h, w = out_size(x.shape[1], k, 2), out_size(x.shape[2], k, 2)
+            buf = _concat_buffer(q[names[0]], n, h, w, x.device)
+            _qconv(q['stem3'], x, stride=2, out=buf[..., :cin])
+        else:
             x = max_pool_same(x)
-        for bi in range(cfg.blocks_per_stage[si]):
-            x = _qosa(q[f'stage{stage}_block{bi}'], x, cfg.layers_per_block,
-                      identity=(bi > 0))
+            h, w, cin = x.shape[1:]
+            buf = _concat_buffer(q[names[0]], n, h, w, x.device)
+            buf[..., :cin].copy_(x)
+        for bi, name in enumerate(names):
+            nxt = (_concat_buffer(q[names[bi + 1]], n, h, w, x.device)
+                   if bi + 1 < len(names) else None)
+            cout = q[name]['concat']['w'].shape[3]
+            x = _qosa(q[name], buf[..., :cin], cfg.layers_per_block,
+                      identity=(bi > 0),
+                      out=None if nxt is None else nxt[..., :cout], buf=buf)
+            buf, cin = nxt, cout
         if stage in cfg.out_stages:
             outputs.append((x * q[f'stage{stage}_scale'])
                            .to(torch.bfloat16).permute(0, 3, 1, 2))

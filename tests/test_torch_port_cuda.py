@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (the MSDA forward, its two backward
-kernels through autograd, the fused OSA block and the int8 convolution)
-against their plain
+kernels through autograd, the fused OSA block, the int8 convolution's two
+kernels and the int8 OSA block tail) against their plain
 PyTorch versions, on the card, and the dataset-to-metric path there (the
 uint8 input branch against the CPU, two steps of the training runner from a
 PNG dataset on disk, a checkpoint round trip of a card state). These tests import neither jax nor the JAX package, and skip where
@@ -15,8 +15,10 @@ import torch
 
 from _msda_cases import CASES
 from _osa_cases import OSA_SHAPES, assert_osa_close, osa_operands
-from _qconv_cases import QCONV_SHAPES, port_operands
-from far3d_tpu_torch.ops import _build, msda_cuda, osa, osa_cuda
+from _qconv_cases import (ESE_CASES, QCONV_SHAPES, QCONV_SLICES, SENTINEL,
+                          ese_operands, port_operands, slice_operands)
+from far3d_tpu_torch.ops import (_build, msda_cuda, osa, osa_cuda,
+                                 qconv_cuda, quant)
 from far3d_tpu_torch.ops.qconv import qconv, qconv_reference
 from far3d_tpu_torch.ops.msda import (msda, msda_backward_reference,
                                       msda_reference)
@@ -282,13 +284,142 @@ def test_cuda_qconv_matches_reference_bitwise(name, float_out, cuda_device):
     the results are bitwise equal, int8 or f32."""
     sh = QCONV_SHAPES[name]
     ops = port_operands(sh, 0, cuda_device)
-    before = _build.launch_counts.get('qconv', 0)
+    counts = dict(_build.launch_counts)
     got = qconv(*ops, sh['stride'], float_out)
     torch.cuda.synchronize()
-    assert _build.launch_counts['qconv'] == before + 1
+    which = qconv_cuda.route(ops[0], ops[1], sh['stride'], got)
+    if name.startswith('tma'):
+        assert which == 'tma'
+    assert {k: v - counts.get(k, 0) for k, v in _build.launch_counts.items()
+            if v != counts.get(k, 0)} == {qconv_cuda.NAMES[which]: 1}
     want = qconv_reference(*ops, sh['stride'], float_out)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('float_out', [False, True])
+@pytest.mark.parametrize('name', sorted(QCONV_SLICES))
+def test_cuda_qconv_slices_bitwise(name, float_out, cuda_device):
+    """A channel slice in, a channel slice out, as the OSA block's convs
+    read and write its concat buffer: the slice bitwise the plain version's,
+    the rest of the output buffer untouched, the expected kernel launched."""
+    sh = QCONV_SLICES[name]
+    x, w, a, b, out_buf, out = slice_operands(sh, 0, cuda_device, float_out)
+    which = name.split('_')[0]
+    assert qconv_cuda.route(x, w, sh['stride'], out) == which
+    before = _build.launch_counts[qconv_cuda.NAMES[which]]
+    got = qconv(x, w, a, b, sh['stride'], float_out, out=out)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[qconv_cuda.NAMES[which]] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, qconv_reference(x.contiguous(), w, a, b,
+                                            sh['stride'], float_out))
+    rest = torch.ones(out_buf.shape[-1], dtype=torch.bool)
+    rest[sh['out_off']:sh['out_off'] + sh['co']] = False
+    assert (out_buf[..., rest.to(cuda_device)] == SENTINEL).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wgs, float_out, bn', sorted(
+    (wgs, f, bn) for (wgs, f), widths in qconv_cuda.TMA_WIDTHS.items()
+    for bn in widths))
+def test_cuda_qconv_tma_every_instantiation(wgs, float_out, bn, cuda_device):
+    """Each tile the TMA kernel is built for, forced on a conv whose co
+    spans two N tiles (the second ragged) and whose pixels leave the last
+    tiles ragged in both directions, ci = 224 (units of 128, 64 and 32
+    channels): bitwise the plain version's."""
+    sh = dict(n=2, h=7, w=11, ci=224, co=bn + 16, k=3, stride=1)
+    x, w, a, b = port_operands(sh, 3, cuda_device)
+    bw, bh = qconv_cuda.spatial_box(7, 11, 64 * wgs)
+    plan = qconv_cuda.TmaPlan(wgs, bn, bw, bh, -(-11 // bw) * -(-7 // bh))
+    y, sums = qconv_cuda.qconv_tma(x, w, a, b, 1, True, channel_sums=True,
+                                   plan=plan) if float_out else (
+        qconv_cuda.qconv_tma(x, w, a, b, 1, False, plan=plan), None)
+    torch.cuda.synchronize()
+    want = qconv_reference(x, w, a, b, 1, float_out)
+    assert torch.equal(y, want)
+    if float_out:
+        torch.testing.assert_close(sums, want.sum(dim=(1, 2)), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['tma_wide_1x1', 'tma_ragged_m',
+                                  'concat_1x1', 'ci8_ragged_co'])
+def test_cuda_qconv_channel_sums(name, cuda_device):
+    """The per-channel sums of the f32 output (the eSE mean's): summed in a
+    fixed order of the kernel's own (TMA: per tile, then the tiles; mma.sync:
+    the rows), so within f32 rounding of the plain ``Tensor.sum`` and
+    bitwise equal from run to run."""
+    sh = QCONV_SHAPES[name]
+    ops = port_operands(sh, 2, cuda_device)
+    y, sums = qconv(*ops, sh['stride'], True, channel_sums=True)
+    y2, sums2 = qconv(*ops, sh['stride'], True, channel_sums=True)
+    torch.cuda.synchronize()
+    want_y, want = qconv_reference(*ops, sh['stride'], True,
+                                   channel_sums=True)
+    assert torch.equal(y, want_y) and torch.equal(y2, want_y)
+    assert torch.equal(sums, sums2)
+    torch.testing.assert_close(sums, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ESE_CASES))
+def test_cuda_ese_requant_matches_reference_bitwise(case, cuda_device):
+    """The block tail against its plain version on the same y and gate:
+    every product and sum rounded in the same order, so bitwise; the output
+    slice only written; one launch; two runs bitwise equal."""
+    y, gate, r_out, x_id, s_id, out_buf, out = ese_operands(
+        ESE_CASES[case], 0, cuda_device)
+    before = _build.launch_counts.get('ese_requant', 0)
+    got = quant.ese_requant(y, gate, r_out, x_id, s_id, out)
+    torch.cuda.synchronize()
+    assert _build.launch_counts['ese_requant'] == before + 1
+    want = quant.ese_requant_reference(y, gate, r_out, x_id, s_id)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert 0 < int((want == 127).sum()) and 0 < int((want == 0).sum())
+    assert torch.equal(quant.ese_requant(y, gate, r_out, x_id, s_id), got)
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr()
+        c = ESE_CASES[case]['c']
+        assert (out_buf[..., :16] == SENTINEL).all()
+        assert (out_buf[..., 16 + c:] == SENTINEL).all()
+
+
+@pytest.mark.cuda
+def test_cuda_quant_forward_matches_cpu(cuda_device):
+    """The tiny config's int8 backbone on the card (the mma.sync kernel for
+    its narrow slices, the tail kernel) against the same tree on the CPU:
+    the eSE means are summed in other orders, so a rounding tie may fall the
+    other way; at least 99.9% of each block's int8 outputs equal, none more
+    than 1 apart."""
+    cfg, model = _tiny_model(cuda_device)
+    rng = np.random.RandomState(4)
+    batches = [torch.from_numpy(rng.randn(2, 3, *cfg.data.input_hw)
+                                .astype(np.float32)).to(
+                                    cuda_device, torch.bfloat16)
+               for _ in range(2)]
+    amax = quant.calibrate_vovnet(model.img_backbone, batches)
+    tree = quant.build_quant_vovnet(model.img_backbone, amax,
+                                    cfg.data.img_mean, cfg.data.img_std)
+    def to_cpu(t):
+        return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.cpu())
+
+    cpu_tree = to_cpu(tree)
+    x = batches[0].permute(0, 2, 3, 1).contiguous()
+    x_q = quant.quantize_input(x, tree['s0'])
+    got = quant.quant_vovnet_forward(cfg.backbone, tree, x_q)
+    want = quant.quant_vovnet_forward(cfg.backbone, cpu_tree, x_q.cpu())
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(tree[f'stage{i + 2}_scale'])
+        q_g = torch.round(g.float().cpu() / scale)
+        q_w = torch.round(w.float() / scale)
+        diff = (q_g - q_w).abs()
+        assert diff.max() <= 1, (i, diff.max())
+        assert (diff > 0).float().mean() <= 1e-3, (i, diff.mean())
 
 
 def _tiny_model(device, seed=0):

@@ -19,6 +19,7 @@ def test_import_loads_no_jax():
     code = ('import sys, far3d_tpu_torch, far3d_tpu_torch.entry, '
             'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.ops.osa_cuda, '
             'far3d_tpu_torch.ops.qconv_cuda, far3d_tpu_torch.ops.quant, '
+            'far3d_tpu_torch.ops.ese_requant_cuda, '
             'far3d_tpu_torch.train.step; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
@@ -111,6 +112,16 @@ def test_qconv_cuda_wrapper_refuses_cpu_tensors():
     w = torch.zeros(8, 3, 3, 16, dtype=torch.int8)
     with pytest.raises(ValueError, match='CUDA'):
         qconv_cuda(x, w, torch.ones(8), torch.zeros(8))
+
+
+def test_ese_requant_cuda_wrapper_refuses_cpu_tensors():
+    """`ese_requant_cuda.ese_requant_cuda` never computes on the CPU (the
+    dispatcher `quant.ese_requant` is what routes CPU tensors to
+    `ese_requant_reference`)."""
+    from far3d_tpu_torch.ops.ese_requant_cuda import ese_requant_cuda
+    y = torch.zeros(1, 2, 3, 16)
+    with pytest.raises(ValueError, match='CUDA'):
+        ese_requant_cuda(y, torch.zeros(1, 16), torch.tensor(1.0))
 
 
 def _port_modules():

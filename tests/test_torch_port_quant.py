@@ -13,9 +13,15 @@ size, the weights shared through the reference-keyed state dict.
   multiply and the add, or sums the eSE mean in another order); the bf16
   stage outputs agree within 2 quanta of each stage's scale.
 * ``qconv_reference``: the s32 accumulator equals
-  ``lax.conv_general_dilated(..., preferred_element_type=int32)``, and the
-  epilogue equals the JAX ``_qconv`` on the same accumulator. The int8 max
-  pool and ``quantize_input`` are bitwise JAX's.
+  ``lax.conv_general_dilated(..., preferred_element_type=int32)``, also on
+  channel slices of wider buffers, and the epilogue equals the JAX
+  ``_qconv`` on the same accumulator; written into a channel slice, it
+  leaves the rest of the buffer alone. The int8 max pool and
+  ``quantize_input`` are bitwise JAX's.
+* The OSA block tail (``ese_gate`` + ``ese_requant_reference``) is bitwise
+  the JAX ``_qosa``'s tail on the same concat-conv output; the block with
+  its concat read and written in place is bitwise the ``torch.cat`` block
+  it replaced.
 """
 
 import jax
@@ -24,11 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from _qconv_cases import QCONV_SHAPES, port_operands, qconv_operands
+from _qconv_cases import (QCONV_SHAPES, QCONV_SLICES, SENTINEL, port_operands,
+                          qconv_operands, slice_operands)
 from _torch_port_setup import make_cfgs, port_model, shared_weights
 from far3d_tpu.ops import quant as jq
 from far3d_tpu_torch.ops import quant as tq
-from far3d_tpu_torch.ops.qconv import qconv, qconv_acc_reference
+from far3d_tpu_torch.ops.qconv import (qconv, qconv_acc_reference,
+                                       qconv_reference)
 
 @pytest.mark.parametrize('name', sorted(QCONV_SHAPES))
 def test_qconv_accumulator_matches_xla(name):
@@ -66,6 +74,47 @@ def test_qconv_matches_jax_qconv(name, float_out):
         assert_int8_close(got, want, name)
 
 
+@pytest.mark.parametrize('float_out', [False, True])
+@pytest.mark.parametrize('name', sorted(QCONV_SLICES))
+def test_qconv_slices_match_xla(name, float_out):
+    """A channel slice of a wider buffer in, a channel slice out, as the
+    int8 OSA block reads and writes its concat buffer: the accumulator is
+    XLA's on the same slice, the slice written is the contiguous result,
+    bitwise, and nothing else of the output buffer changes."""
+    sh = QCONV_SLICES[name]
+    x, w, a, b, out_buf, out = slice_operands(sh, 0, 'cpu', float_out)
+    assert not x.is_contiguous() and not out.is_contiguous()
+    p = (sh['k'] - 1) // 2
+    want = jax.lax.conv_general_dilated(
+        jnp.asarray(x.numpy()), jnp.asarray(w.permute(1, 2, 3, 0).numpy()),
+        (sh['stride'],) * 2, ((p, p), (p, p)),
+        dimension_numbers=('NHWC', 'HWIO', 'NHWC'),
+        preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(
+        qconv_acc_reference(x, w, sh['stride']).numpy(), np.asarray(want))
+    got = qconv(x, w, a, b, sh['stride'], float_out, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, qconv(x.contiguous(), w, a, b, sh['stride'],
+                                  float_out))
+    rest = torch.ones(sh['out_pitch'], dtype=torch.bool)
+    rest[sh['out_off']:sh['out_off'] + sh['co']] = False
+    assert (out_buf[..., rest] == SENTINEL).all()
+
+
+@pytest.mark.parametrize('name', ['concat_1x1', 'tma_wide_1x1'])
+def test_qconv_channel_sums_are_the_outputs_sums(name):
+    """The plain version's channel sums: ``Tensor.sum`` over each image of
+    the f32 output it returns, the eSE mean times h*w."""
+    sh = QCONV_SHAPES[name]
+    ops = port_operands(sh, 4, 'cpu')
+    y, sums = qconv_reference(*ops, sh['stride'], True, channel_sums=True)
+    assert torch.equal(y, qconv(*ops, sh['stride'], True))
+    assert torch.equal(sums, y.sum(dim=(1, 2)))
+    assert torch.equal(sums / (y.shape[1] * y.shape[2]), y.mean(dim=(1, 2)))
+    with pytest.raises(ValueError, match='float output'):
+        qconv_reference(*ops, sh['stride'], False, channel_sums=True)
+
+
 def assert_int8_close(got, want, what, share=1e-3):
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max(initial=0) <= 1, (what, diff.max())
@@ -95,6 +144,42 @@ def test_quantize_input_and_scale_match():
     got = tq.quantize_input(torch.from_numpy(x.astype(np.float32))
                             .to(torch.bfloat16), torch.tensor(s0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('identity', [False, True])
+def test_plain_tail_matches_jax_tail(identity, monkeypatch):
+    """The block tail the port runs on the CPU (``ese_gate`` from the
+    concat conv's channel sums, then ``ese_requant_reference``) against the
+    JAX ``_qosa``'s own tail, fed the same concat-conv output through a
+    stand-in ``_qconv``: bitwise. The operands are dyadic with h*w = 32, so
+    that the eSE mean and the gate product are exact in any order of
+    summation and the comparison is one of the elementwise rounding."""
+    rng = np.random.RandomState(5)
+    n, h, w, c, layers = 2, 4, 8, 48, 2
+    y = (np.maximum(rng.randint(-50, 200, (n, h, w, c)), 0) / 4.0).astype(
+        np.float32)
+    x = rng.randint(0, 128, (n, h, w, c)).astype(np.int8)
+    blk = dict(ese_w=(rng.randint(-8, 9, (c, c)) / 16.0).astype(np.float32),
+               ese_b=(rng.randint(-48, 49, c) / 16.0).astype(np.float32),
+               s_id=np.float32(0.021), r_out=np.float32(37.3))
+
+    def fake_qconv(qc, x_q, stride=1, float_out=False):
+        return (jnp.asarray(y) if float_out
+                else jnp.zeros((*x_q.shape[:3], 8), jnp.int8))
+
+    monkeypatch.setattr(jq, '_qconv', fake_qconv)
+    jblk = {k: jnp.asarray(v) for k, v in blk.items()}
+    jblk.update({f'layer{li}': {} for li in range(layers)}, concat={})
+    want = np.asarray(jq._qosa(jblk, jnp.asarray(x), layers, identity))
+    tblk = {k: torch.from_numpy(np.asarray(v)) for k, v in blk.items()}
+    yt = torch.from_numpy(y)
+    gate = tq.ese_gate(tblk, yt.sum(dim=(1, 2)), h * w)
+    got = tq.ese_requant(yt, gate, tblk['r_out'],
+                         torch.from_numpy(x) if identity else None,
+                         tblk['s_id'] if identity else None)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < np.count_nonzero(want == 127) < want.size
 
 
 # ---------------------------------------------------------------------------
@@ -231,3 +316,68 @@ def test_quant_backbone_close_to_bf16(backbones):
         a, b = a.float(), b.float()
         rel = ((a - b).norm() / b.norm().clamp_min(1e-6)).item()
         assert rel < 0.08, (i, rel)
+
+
+def _qosa_cat(blk, x_q, layers, identity):
+    """The int8 OSA block as the port ran it before the concat was read in
+    place: each layer conv into a new tensor, ``torch.cat``, the concat conv,
+    then the eSE gate, identity add and requantization as PyTorch passes
+    (the yardstick of the in-place block)."""
+    outs, h = [x_q], x_q
+    for li in range(layers):
+        h = tq._qconv(blk[f'layer{li}'], h)
+        outs.append(h)
+    y = tq._qconv(blk['concat'], torch.cat(outs, dim=-1), float_out=True)
+    s = y.mean(dim=(1, 2))
+    g = s @ blk['ese_w'] + blk['ese_b']
+    y.mul_(((g + 3.0).clamp(0.0, 6.0) / 6.0)[:, None, None, :])
+    if identity:
+        y.add_(x_q * blk['s_id'])
+    return y.mul_(blk['r_out']).round_().clamp_(0, 127).to(torch.int8)
+
+
+def _forward_cat(cfg, q, x_q):
+    """``quant_vovnet_forward`` as the port ran it before (each block through
+    ``_qosa_cat``): the block outputs and the stage outputs."""
+    x = tq._qconv(q['stem1'], x_q, stride=2)
+    x = tq._qconv(q['stem2'], x)
+    x = tq._qconv(q['stem3'], x, stride=2)
+    blocks, outputs = [], []
+    for si in range(4):
+        stage = si + 2
+        if stage != 2:
+            x = tq.max_pool_same(x)
+        for bi in range(cfg.blocks_per_stage[si]):
+            x = _qosa_cat(q[f'stage{stage}_block{bi}'], x,
+                          cfg.layers_per_block, identity=(bi > 0))
+            blocks.append(x)
+        if stage in cfg.out_stages:
+            outputs.append((x * q[f'stage{stage}_scale'])
+                           .to(torch.bfloat16).permute(0, 3, 1, 2))
+    return blocks, outputs
+
+
+def test_inplace_concat_forward_matches_cat_version(backbones, monkeypatch):
+    """``quant_vovnet_forward`` with each block's concat one buffer read and
+    written in place (stem3 and each block writing into the next block's
+    slice 0) against the same forward through ``_qosa_cat``: every block's
+    int8 output and every stage output bitwise equal."""
+    cfg, q = backbones['port_cfg'].backbone, backbones['ttree']
+    x = normalized_images(backbones['jax_cfg'], 6)
+    x_q = tq.quantize_input(torch.from_numpy(x).to(torch.bfloat16), q['s0'])
+    got_blocks, real = [], tq._qosa
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        got_blocks.append(out.clone())
+        return out
+
+    monkeypatch.setattr(tq, '_qosa', recording)
+    got = tq.quant_vovnet_forward(cfg, q, x_q)
+    want_blocks, want = _forward_cat(cfg, q, x_q)
+    assert len(got_blocks) == len(want_blocks) == sum(cfg.blocks_per_stage)
+    for i, (g, w) in enumerate(zip(got_blocks, want_blocks)):
+        assert torch.equal(g, w), i
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
