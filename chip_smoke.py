@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port (far3d_tpu_torch) on one NVIDIA card.
+"""Chip smoke test of the PyTorch port (far3d_tpu_torch) on one NVIDIA card:
+Far3D (phases 1-17) and StreamPETR (phase 18).
 
     python3 chip_smoke.py
 
@@ -101,8 +102,34 @@ Phases, each raising on failure:
      --submission on its checkpoint, with a drivable-area map per scene
      written beside the dataset, with the ROI gate (--map-root) and
      without: mAP, CDS, the GT boxes counted, the submission's rows read
-     back from the file's footer.
-Then it prints one JSON line of kernels and, last, the device line.
+     back from the file's footer;
+ 18. the StreamPETR family at full StreamPETRConfig() width (VoVNet-99, 6
+     cameras of 320x800, 644 + 128 queries, 512 memory slots, 6 layers),
+     seeded weights: (a) 8 streaming frames through petr_entry with the
+     bf16 backbone (no kernel of the port launched), then the same 8 with
+     the int8 backbone (quantize_petr_backbone on 2 other frames; 98
+     qconv_tma, 1 qconv_mma and 16 ese_requant launches a frame), ms/frame
+     of each (median of frames 2..7), finite detections, the stages'
+     relative L2 error int8 against bf16 on a held-out frame; (b) qconv
+     bitwise against its plain version on all 99 conv sites as the model
+     passes them (98 TMA required; sites whose operands the TMA kernel
+     does not take are printed with their row pitch), the kernel's ms per
+     class of sites warm and cold with its bound, and the 16 block tails of
+     ese_requant bitwise with their ms against the bytes bound; both
+     backbones' device busy ms (torch.profiler) and a whole bf16 frame's;
+     (c) decoder layer 0's cross attention (772 x 6,000 keys, 8 heads of
+     32, bf16): scaled_dot_product_attention against the JAX package's
+     einsum + f32 softmax form (yardstick), their max difference and device
+     ms; (d) 6 full-width training steps through petr_train_entry (grid
+     mask, dropout, bf16 images): ms/step (median of steps 2..5), peak
+     memory, finite losses and grad norm, Adam's moment moved for every
+     parameter with a gradient, the pseudo reference points unchanged;
+     (e) a learnable nuScenes dataset of 2 scenes x 4 frames, 2 cameras of
+     PNG at 320x800, in a temporary directory through cli.train_nusc (4
+     steps, a checkpoint) and cli.test_nusc on it, bf16 and --quant:
+     finite mAP and NDS.
+Then it prints a JSON line of phase 18's other readings, one JSON line of
+kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
 TF32 is switched off for matmuls and cuDNN convolutions, so that every f32
@@ -125,13 +152,20 @@ import torch
 import torch.nn.functional as F
 
 from far3d_tpu_torch.cli import test as cli_test
-from far3d_tpu_torch.config import Far3DConfig, tiny_test_config
+from far3d_tpu_torch.cli import test_nusc as cli_test_nusc
+from far3d_tpu_torch.cli import train_nusc as cli_train_nusc
+from far3d_tpu_torch.config import Far3DConfig, TrainConfig, tiny_test_config
 from far3d_tpu_torch.data import pipeline
 from far3d_tpu_torch.data.av2_dataset import AV2SequenceDataset
 from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
-from far3d_tpu_torch.entry import build_model, entry, run_frame, train_entry
+from far3d_tpu_torch.entry import (build_model, build_petr_model, entry,
+                                   petr_entry, petr_train_entry, run_frame,
+                                   train_entry)
 from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
 from far3d_tpu_torch.models.farhead import init_state
+from far3d_tpu_torch.models.streampetr import (StreamPETRConfig,
+                                               init_petr_state,
+                                               tiny_petr_config)
 from far3d_tpu_torch.ops import (_build, ese_requant_cuda, msda_cuda, osa,
                                  osa_cuda, qconv_cuda, quant)
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
@@ -142,11 +176,18 @@ from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
                                         make_infer_step, step_from_noise,
                                         train_step)
 from far3d_tpu_torch.train import runner
+from far3d_tpu_torch.train.petr_step import (create_petr_train_state,
+                                             draw_petr_noise,
+                                             petr_step_from_noise)
 from far3d_tpu_torch.utils.checkpoint import CheckpointManager
-from far3d_tpu_torch.utils.convert import init_state_dict
+from far3d_tpu_torch.utils.convert import (init_state_dict,
+                                           petr_init_state_dict)
 from far3d_tpu_torch.utils.feather import num_rows
 from far3d_tpu_torch.utils.synthetic import (inference_inputs,
                                              make_learnable_dataset_fullsize,
+                                             make_learnable_nusc_dataset,
+                                             petr_inference_inputs,
+                                             petr_synthetic_batch,
                                              synthetic_batch)
 
 FRAMES = 8                     # streaming frames on the main path
@@ -166,6 +207,10 @@ QCONV_PER_FRAME = 99           # 3 stem convs + 16 OSA blocks x (5 + concat)
 QCONV_TMA_PER_FRAME = 98       # all but the stem's first conv (ci = 3)
 BLOCKS_PER_FRAME = 16          # OSA blocks: one ese_requant each
 QUANT_REL_L2 = 0.08            # tests/test_quant.py:88-91, printed beside
+PETR_FRAMES = 8                # StreamPETR streaming frames of phase 18
+PETR_STEPS = 6                 # its full-width training steps
+PETR_DATA_STEPS = 4            # cli.train_nusc steps from its PNG dataset
+PETR_DATA_HW = (320, 800)      # its cameras: the model's input, no resize
 # The eight fused blocks against the model's own modules: the model rounds
 # each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
 # kernel applies it in f32 on the f32 sum and rounds once, so each of a
@@ -427,17 +472,34 @@ def tiny_train_card_vs_cpu(dev):
             for k, p in state.model.named_parameters()}
         results[device.type] = (metrics, state.model.state_dict(), moments,
                                 before)
+    moved, n = hold_card_to_cpu(results)
+    mg, mc = results['cuda'][0], results['cpu'][0]
+    log(f'  tiny train step card vs CPU: {len(mc[0])} metrics x 2 steps '
+        f'(tol {TINY_TOL}), Adam first moments of {n[0]} parameters '
+        f'({moved} with a gradient, each moved on the card; rtol 1e-3, atol '
+        f'2e-3 x max |m|), {n[1]} parameters and buffers (tol {TINY_TOL}) '
+        f'agree; total_loss {mg[0]["total_loss"]:.4f} -> '
+        f'{mg[1]["total_loss"]:.4f}, grad_norm {mg[0]["grad_norm"]:.3f}')
+
+
+def hold_card_to_cpu(results, moment_floor=1e-12):
+    """Hold a card's tiny training run to the CPU's: results[device type] =
+    (metrics of each step, state dict after them, Adam first moments, the
+    parameters before them); a moment's atol is 2e-3 of its tensor's
+    largest, at least `moment_floor`. Returns (parameters with a gradient,
+    (number of moments, number of state-dict entries))."""
     (mg, sg, ag, before), (mc, sc, ac, _) = results['cuda'], results['cpu']
     for i, (a, b) in enumerate(zip(mg, mc)):
         for k in b:
-            torch.testing.assert_close(torch.tensor(a[k]), torch.tensor(b[k]),
-                                       msg=f'step {i} {k}', **TINY_TOL)
+            torch.testing.assert_close(
+                torch.tensor(a[k]), torch.tensor(b[k]), **TINY_TOL,
+                msg=lambda m, k=k: f'step {i} {k}: {m}')
     moved = 0
     for k, want in ac.items():
         scale = want.abs().max().item()
         torch.testing.assert_close(ag[k], want, rtol=1e-3,
-                                   atol=max(2e-3 * scale, 1e-12),
-                                   msg=f'exp_avg {k}')
+                                   atol=max(2e-3 * scale, moment_floor),
+                                   msg=lambda m, k=k: f'exp_avg {k}: {m}')
         if scale > 0:
             moved += 1
             if torch.equal(before[k], sg[k]):
@@ -446,12 +508,55 @@ def tiny_train_card_vs_cpu(dev):
         raise AssertionError(f'only {moved} of {len(ac)} parameters have a '
                              'gradient')
     for k in sc:
-        torch.testing.assert_close(sg[k].cpu(), sc[k], msg=k, **TINY_TOL)
-    log(f'  tiny train step card vs CPU: {len(mc[0])} metrics x 2 steps '
-        f'(tol {TINY_TOL}), Adam first moments of {len(ac)} parameters '
-        f'({moved} with a gradient, each moved on the card; rtol 1e-3, atol '
-        f'2e-3 x max |m|), {len(sc)} parameters and buffers (tol {TINY_TOL}) '
-        f'agree; total_loss {mg[0]["total_loss"]:.4f} -> '
+        torch.testing.assert_close(sg[k].cpu(), sc[k], **TINY_TOL,
+                                   msg=lambda m, k=k: f'{k}: {m}')
+    return moved, (len(ac), len(sc))
+
+
+def tiny_petr_train_card_vs_cpu(dev):
+    """tiny_train_card_vs_cpu for StreamPETR: two tiny f32 training steps
+    without dropout on the card and on the CPU, from the same initial
+    weights, batch and grid-mask draws. Its step runs no port kernel, so
+    this holds the card's library numerics of the forward, the backward and
+    AdamW to the CPU's: the closed loop's seed sweeps (PERF.md) compare the
+    two devices, whose dropout draws differ. The moments' atol is at least
+    1e-8, as in tests/test_torch_port_petr.py: the frustum PE's output bias
+    and the attentions' key biases have gradients that are zero in exact
+    arithmetic (the softmax cancels their equal shift of every key's score),
+    so their moments are rounding noise (1e-10 to 3e-9 on the CPU)."""
+    cfg = dataclasses.replace(tiny_petr_config(), dropout=0.0)
+    tcfg = dataclasses.replace(TrainConfig(), lr=2e-3, warmup_iters=1,
+                               dtype='float32', ema_decay=0.0)
+    gen = torch.Generator().manual_seed(0)
+    noises = [draw_petr_noise(cfg, tcfg, gen) for _ in range(2)]
+    weights = petr_init_state_dict(cfg, 0)
+    results = {}
+    for device in (dev, torch.device('cpu')):
+        state, tstate = create_petr_train_state(
+            build_petr_model(cfg, device, weights=weights), tcfg)
+        before = {k: p.detach().clone()
+                  for k, p in state.model.named_parameters()}
+        batch = {k: v.to(device)
+                 for k, v in petr_synthetic_batch(cfg, 1, 6).items()}
+        metrics = []
+        for i, noise in enumerate(noises):
+            if i:
+                batch['prev_exists'] = torch.ones(1, device=device)
+            state, tstate, m = petr_step_from_noise(cfg, tcfg, state, tstate,
+                                                    batch, noise)
+            metrics.append({k: float(v) for k, v in m.items()})
+        moments = {k: state.optimizer.state.get(p, {}).get(
+            'exp_avg', torch.zeros_like(p)).cpu()
+            for k, p in state.model.named_parameters()}
+        results[device.type] = (metrics, state.model.state_dict(), moments,
+                                before)
+    moved, n = hold_card_to_cpu(results, moment_floor=1e-8)
+    mg = results['cuda'][0]
+    log(f'  tiny StreamPETR train step card vs CPU (f32, no dropout, grid '
+        f'mask on): {len(mg[0])} metrics x 2 steps (tol {TINY_TOL}), Adam '
+        f'first moments of {n[0]} parameters ({moved} with a gradient, each '
+        f'moved on the card), {n[1]} parameters and buffers agree; '
+        f'total_loss {mg[0]["total_loss"]:.4f} -> '
         f'{mg[1]["total_loss"]:.4f}, grad_norm {mg[0]["grad_norm"]:.3f}')
 
 
@@ -1616,6 +1721,288 @@ def serving_cli(workdir, card):
     return out
 
 
+def petr_frames(step, state0, tree, dev, cfg):
+    """PETR_FRAMES streaming frames from a fresh state through `step`
+    (quant_tree=`tree`): ms a frame on the host clock ending in
+    torch.cuda.synchronize(), the last detections."""
+    state, times, dets = state0, [], None
+    for i in range(PETR_FRAMES):
+        t0 = time.perf_counter()
+        dets, state = step(state, quant_tree=tree,
+                           prev_exists=torch.full((1,), float(i > 0),
+                                                  device=dev),
+                           timestamp=torch.full((1,), 0.5 * i, device=dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for k in ('scores', 'boxes'):
+            if not torch.isfinite(dets[k]).all():
+                raise AssertionError(f'StreamPETR frame {i}: non-finite {k}')
+        if dets['boxes'].shape != (1, cfg.max_decode_num, 9):
+            raise AssertionError(f'frame {i}: boxes '
+                                 f'{tuple(dets["boxes"].shape)}')
+    return times, dets
+
+
+def petr_cross_attention(ca, args, card):
+    """Phase 18c: one decoder layer's cross attention on its operands (772
+    queries x 6,000 keys, 8 heads of 32, bf16): the port's
+    scaled_dot_product_attention against the JAX package's form (bf16
+    einsum, scale, f32 softmax, bf16 einsum; a yardstick, never called by
+    the port), their max difference, device ms and the bound."""
+    q, k, v = args[:3]
+    h = ca.num_heads
+    d = q.shape[-1] // h
+
+    def heads(x, proj):
+        return proj(x).reshape(x.shape[0], x.shape[1], h, d).transpose(1, 2)
+
+    qh, kh, vh = heads(q, ca.q_proj), heads(k, ca.k_proj), heads(v, ca.v_proj)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    def einsum_form():
+        s = (qh @ kh.transpose(-1, -2)) * d ** -0.5
+        return torch.softmax(s.float(), dim=-1).to(qh.dtype) @ vh
+
+    got, want = sdpa(), einsum_form()
+    diff = (got.float() - want.float()).abs().max().item()
+    nbytes = (qh.numel() + kh.numel() + vh.numel() + got.numel()) * 2
+    flops = 4 * qh.shape[2] * kh.shape[2] * h * d * qh.shape[0]
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    t = dict(sdpa_ms=device_ms(sdpa, 50), einsum_ms=device_ms(einsum_form, 20),
+             module_ms=device_ms(lambda: ca(q, k, v), 50), max_abs_err=diff,
+             bound_ms=b_ms, bound_by=b_by, out_max=want.float().abs().max()
+             .item())
+    if not (np.isfinite(diff) and diff <= 2e-2 * max(t['out_max'], 1.0)):
+        raise AssertionError(f'cross attention: SDPA and the einsum form '
+                             f'differ by {diff}')
+    log(f'  cross attention of decoder layer 0, q {tuple(qh.shape)} k '
+        f'{tuple(kh.shape)} {qh.dtype}: scaled_dot_product_attention '
+        f'{t["sdpa_ms"]:.4f} ms, the einsum + f32 softmax form '
+        f'{t["einsum_ms"]:.4f} ms, max difference {diff:.3e} (output max '
+        f'{t["out_max"]:.3e}); the whole FlashMHA (projections + SDPA) '
+        f'{t["module_ms"]:.4f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]')
+    return t
+
+
+def petr_serving_path(dev, card):
+    """Phase 18a-c: StreamPETRConfig() at full width, bf16 then int8."""
+    cfg = StreamPETRConfig()
+    t0 = time.perf_counter()
+    step, (state0,) = petr_entry(cfg)
+    model = step.model
+    calib = [torch.from_numpy(petr_inference_inputs(cfg, seed=s)['images'])
+             .to(dev, torch.bfloat16) for s in range(1, 1 + CALIB_FRAMES)]
+    q = quant.quantize_petr_backbone(model, calib)
+    torch.cuda.synchronize()
+    log(f'  StreamPETRConfig() built with seeded weights, its backbone '
+        f'calibrated on {CALIB_FRAMES} frames and quantized in '
+        f'{time.perf_counter() - t0:.1f} s: {cfg.num_cams} cameras at '
+        f'{cfg.input_hw[0]}x{cfg.input_hw[1]}, {cfg.num_query} + '
+        f'{cfg.num_propagated} queries, {cfg.memory_len} memory slots, '
+        f'{cfg.num_layers} layers')
+    ca = model.pts_bbox_head.decoder.layer0.cross_attn
+    captured = {}
+
+    def capture(module, args):
+        if 'args' not in captured:
+            captured['args'] = [a.detach().clone() for a in args[:3]]
+
+    hook = ca.register_forward_pre_hook(capture)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    bf16_times, bf16_dets = petr_frames(step, state0, None, dev, cfg)
+    bf16_launches = {k: v for k, v in _build.launch_counts.items() if v}
+    hook.remove()
+    _build.reset_launch_counts()
+    int8_times, int8_dets = petr_frames(step, state0, q, dev, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    want = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME * PETR_FRAMES,
+            qconv_cuda.NAMES['mma']: (QCONV_PER_FRAME - QCONV_TMA_PER_FRAME)
+            * PETR_FRAMES,
+            ese_requant_cuda.NAME: BLOCKS_PER_FRAME * PETR_FRAMES}
+    if bf16_launches or launches != want:
+        raise AssertionError(f'StreamPETR launches: bf16 {bf16_launches} '
+                             f'(none expected), int8 {launches}, expected '
+                             f'{want}')
+    bf16_ms = statistics.median(bf16_times[2:])
+    int8_ms = statistics.median(int8_times[2:])
+    log(f'  {PETR_FRAMES} streaming frames bf16, then the same {PETR_FRAMES} '
+        f'through quant_backbone: launches bf16 none, int8 {launches} '
+        f'({QCONV_TMA_PER_FRAME} qconv_tma, '
+        f'{QCONV_PER_FRAME - QCONV_TMA_PER_FRAME} qconv_mma, '
+        f'{BLOCKS_PER_FRAME} ese_requant a frame); top score bf16 '
+        f'{bf16_dets["scores"][0, 0].item():.4f}, int8 '
+        f'{int8_dets["scores"][0, 0].item():.4f}')
+    log(f'  ms/frame (median of frames 2..{PETR_FRAMES - 1}): bf16 '
+        f'{bf16_ms:.2f} (first {bf16_times[0]:.1f}), int8 {int8_ms:.2f} '
+        f'(first {int8_times[0]:.1f}); peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]')
+
+    x_bf16 = torch.from_numpy(petr_inference_inputs(cfg, seed=3)['images']
+                              ).to(dev, torch.bfloat16)
+    x_bf16 = x_bf16.reshape(-1, *x_bf16.shape[2:])          # held out
+    x_q = quant.quantize_input(x_bf16, q['s0'])
+    x_nchw = x_bf16.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = quant.quant_vovnet_forward(cfg.backbone, q, x_q)
+        ref = model.img_backbone(x_nchw)
+        if not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError('StreamPETR int8 stage outputs not finite')
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(got, ref)]
+        log('  stage outputs ' + ', '.join(
+            f'{tuple(a.shape[2:])}' for a in got) + ', relative L2 error '
+            'against the bf16 backbone on a held-out frame: ' + ', '.join(
+                f'stage {i + 2} {r:.4f}' for i, r in enumerate(rel)))
+
+        log('== phase 18b: qconv on all 99 StreamPETR conv sites and '
+            'ese_requant on its 16 block tails, as the model passes them')
+        names = qconv_site_names(cfg.backbone)
+        sites, tails = record_sites(
+            lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
+        if len(sites) != len(names):
+            raise AssertionError(f'{len(sites)} conv sites, {len(names)} '
+                                 'names')
+        routes = qconv_sites_check(sites, names)
+        off_tma = [(n, tuple(x.shape), qconv_cuda.pitch_of(x, 'x'))
+                   for n, (x, w, *_) in zip(names, sites)
+                   if x.shape[3] % 16 or qconv_cuda.pitch_of(x, 'x') % 16
+                   or w.shape[0] % 16]
+        log(f'  sites whose operands the TMA kernel does not take (input '
+            f'shape, row pitch; it needs 16-byte aligned int8 rows): '
+            f'{off_tma}')
+        if routes['tma'] != QCONV_TMA_PER_FRAME:
+            raise AssertionError(f'{routes} of the StreamPETR conv sites, '
+                                 f'expected {QCONV_TMA_PER_FRAME} on TMA')
+        site_t = qconv_site_times(sites, names, card)
+        tail_t = ese_tail_check_and_times(tails, q, cfg.backbone, card)
+        del sites, tails
+        torch.cuda.empty_cache()
+        int8_bb, int8_qconv, int8_tail, int8_parts = device_busy(
+            lambda: quant.quant_vovnet_forward(cfg.backbone, q, x_q))
+        bf16_bb, _, _, bf16_parts = device_busy(
+            lambda: model.img_backbone(x_nchw))
+        log(f'  StreamPETR backbone device busy ms (torch.profiler, mean of '
+            f'3): int8 {int8_bb:.4f} (of it qconv {int8_qconv:.4f}, '
+            f'ese_requant {int8_tail:.4f}), bf16 cuDNN {bf16_bb:.4f} [{card}]')
+        frame_busy, _, _, frame_parts = device_busy(
+            lambda: step(state0, quant_tree=None), reps=3)
+        log(f'  a whole bf16 StreamPETR frame, device busy {frame_busy:.4f} '
+            'ms; top kernels: ' + '; '.join(
+                f'{name[:60]} {ms:.4f}' for name, ms in frame_parts[:5]))
+
+        log('== phase 18c: the cross attention of one decoder layer')
+        attn = petr_cross_attention(ca, captured['args'], card)
+    return dict(launches=launches, bf16_launches=bf16_launches,
+                site_routes=routes, off_tma=off_tma,
+                bf16_frame_ms=bf16_ms, int8_frame_ms=int8_ms, rel_l2=rel,
+                int8_backbone_ms=int8_bb, int8_qconv_ms=int8_qconv,
+                int8_tail_ms=int8_tail, bf16_backbone_ms=bf16_bb,
+                bf16_frame_busy_ms=frame_busy, tail=tail_t, attn=attn,
+                **site_t)
+
+
+def petr_train_path(card):
+    """Phase 18d: PETR_STEPS full-width StreamPETR training steps through
+    petr_train_entry (grid mask, dropout, bf16 images)."""
+    step, (ts, tt) = petr_train_entry()
+    model = ts.model
+    pseudo = model.pts_bbox_head.pseudo_reference_points
+    pseudo0 = pseudo.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], None
+    _build.reset_launch_counts()
+    for i in range(PETR_STEPS):
+        t0 = time.perf_counter()
+        ts, tt, metrics = step(ts, tt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f'StreamPETR step {i}: non-finite {bad}')
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    if launches:
+        raise AssertionError(f'StreamPETR training launched {launches}; its '
+                             'step runs no port kernel (bf16 backbone, no '
+                             'deformable attention)')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = moved = 0
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        if p.grad is not None and bool(p.grad.abs().max() > 0):
+            grads += 1
+            mom = ts.optimizer.state[p]['exp_avg']
+            if not bool(mom.abs().max() > 0):
+                raise AssertionError(f'{name}: a gradient, but Adam\'s moment '
+                                     'did not move')
+            moved += 1
+    if pseudo.requires_grad or not torch.equal(pseudo.detach(), pseudo0):
+        raise AssertionError('pseudo_reference_points moved')
+    ms = statistics.median(times[2:PETR_STEPS])
+    n_params = sum(1 for _ in model.parameters())
+    log(f'  {PETR_STEPS} steps: ms/step (median of steps 2..'
+        f'{PETR_STEPS - 1}) {ms:.2f}, first {times[0]:.1f}; peak memory '
+        f'{peak:.2f} GiB; last total_loss '
+        f'{float(metrics["total_loss"]):.4f}, grad_norm '
+        f'{float(metrics["grad_norm"]):.4f}; Adam moments moved for all '
+        f'{moved} of {n_params} parameters with a gradient (the rest: the '
+        'frozen pseudo reference points and the FPN convs of levels it does '
+        'not read); pseudo_reference_points unchanged; no port kernel '
+        f'launched [{card}]')
+    return dict(ms_step=ms, peak_gib=peak, launches=launches, moved=moved,
+                total_loss=float(metrics['total_loss']),
+                grad_norm=float(metrics['grad_norm']))
+
+
+def petr_dataset_path(workdir, card):
+    """Phase 18e: a learnable nuScenes dataset of 2 scenes x 4 frames, 2
+    cameras of PNG at the model's 320x800, through cli.train_nusc
+    (PETR_DATA_STEPS steps, full StreamPETRConfig() width) and cli.test_nusc
+    on its checkpoint, bf16 and --quant."""
+    t0 = time.perf_counter()
+    make_learnable_nusc_dataset(str(workdir / 'infos.pkl'), str(workdir),
+                                n_scenes=2, frames_per_scene=4,
+                                src_hw=PETR_DATA_HW)
+    log(f'  dataset written in {time.perf_counter() - t0:.1f} s')
+    base = ['--data-root', str(workdir), '--ann-file',
+            str(workdir / 'infos.pkl'), '--src-wh', str(PETR_DATA_HW[1]),
+            str(PETR_DATA_HW[0]), '--set', 'num_cams=2']
+    work = workdir / 'work'
+    t0 = time.perf_counter()
+    cli_train_nusc.main(base + [
+        '--work-dir', str(work), '--max-iters', str(PETR_DATA_STEPS),
+        '--log-interval', '1', '--ckpt-interval', str(PETR_DATA_STEPS)])
+    train_s = time.perf_counter() - t0
+    lines = [json.loads(x) for x in open(work / 'metrics.jsonl')]
+    if [x['iter'] for x in lines] != list(range(1, PETR_DATA_STEPS + 1)) or \
+            not all(np.isfinite(x['total_loss']) for x in lines):
+        raise AssertionError(f'cli.train_nusc metrics: {lines}')
+    log(f'  cli.train_nusc: {PETR_DATA_STEPS} steps in {train_s:.1f} s, '
+        'losses ' + ', '.join(f'{x["total_loss"]:.3f}' for x in lines)
+        + ', s/step ' + ', '.join(f'{x["time"]:.3f}' for x in lines)
+        + f' [{card}]')
+    out = {}
+    for tag, extra in (('bf16', []),
+                       ('int8', ['--quant', '--quant-calib-frames',
+                                 str(CALIB_FRAMES)])):
+        t0 = time.perf_counter()
+        res = cli_test_nusc.evaluate(base + ['--checkpoint', str(work)]
+                                     + extra)
+        wall = time.perf_counter() - t0
+        m = res['means']
+        if res['frames'] != 8 or not (np.isfinite(m['mAP'])
+                                      and np.isfinite(m['NDS'])):
+            raise AssertionError(f'cli.test_nusc {tag}: {res}')
+        out[tag] = dict(mAP=m['mAP'], NDS=m['NDS'], frames=res['frames'],
+                        wall_s=wall)
+        log(f'  cli.test_nusc {" ".join(extra[:1])}: {res["frames"]} frames, '
+            f'mAP {m["mAP"]:.4f}, NDS {m["NDS"]:.4f}, {wall:.1f} s [{card}]')
+    return dict(train_s=train_s, eval=out)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1835,12 +2222,42 @@ def main():
         serve_cli = serving_cli(Path(tmp), card)
     torch.cuda.empty_cache()
 
+    log('== phase 18: StreamPETR at full width: 6 cameras of 320x800, bf16 '
+        'and int8 serving (qconv and ese_requant at its stage shapes), the '
+        'cross attention, training, and the nuScenes path through its CLIs')
+    log('== phase 18a: streaming frames, bf16 then int8')
+    petr = petr_serving_path(dev, card)
+    torch.cuda.empty_cache()
+    log('== phase 18d: full-width StreamPETR training (petr_train_entry); '
+        'tiny StreamPETR train steps card vs CPU')
+    tiny_petr_train_card_vs_cpu(dev)
+    petr_train = petr_train_path(card)
+    torch.cuda.empty_cache()
+    log('== phase 18e: a nuScenes PNG dataset -> cli.train_nusc -> '
+        'cli.test_nusc (bf16, --quant)')
+    with tempfile.TemporaryDirectory(prefix='far3d_nusc_') as tmp:
+        petr_data = petr_dataset_path(Path(tmp), card)
+    torch.cuda.empty_cache()
+    petr_common = {'streampetr_ms_per_frame_bf16': petr['bf16_frame_ms'],
+                   'streampetr_ms_per_frame_int8': petr['int8_frame_ms'],
+                   'streampetr_ms_per_step': petr_train['ms_step'],
+                   'streampetr_peak_gib_train': petr_train['peak_gib']}
+
+    def petr_launches(*names):
+        """Phase 18's launches of these counters: StreamPETR's frames (bf16
+        and int8) and its training steps."""
+        return {'streampetr_launches': sum(
+                    petr['bf16_launches'].get(n, 0) + petr['launches'].get(n, 0)
+                    for n in names),
+                'streampetr_train_launches': sum(
+                    petr_train['launches'].get(n, 0) for n in names)}
+
     common = {'route': 'cuda', 'ms_per_frame': ms_frame, 'ms_per_step': ms_step,
-              'peak_gib_train': train['peak_gib']}
+              'peak_gib_train': train['peak_gib'], **petr_common}
     bwd_plain = 'msda_backward_reference: autograd through msda_reference, f32'
     bwd_lib = 'backward of F.grid_sample per level + einsum (composite, f32)'
     kernels = {'kernels': [{
-        'name': 'msda_fwd', **common,
+        'name': 'msda_fwd', **common, **petr_launches('msda_fwd'),
         'source': 'far3d_tpu_torch/csrc/msda_fwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
@@ -1857,7 +2274,7 @@ def main():
         'library_ms': library_ms,
         'library': 'F.grid_sample per level + einsum (composite, f32)',
     }, {
-        'name': 'msda_dval', **common,
+        'name': 'msda_dval', **common, **petr_launches('msda_dval'),
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:260',
         'launches': train_launches['msda_dval'],
@@ -1872,7 +2289,7 @@ def main():
         'bound_ms': times['dval_bound'], 'bound_by': times['dval_by'],
         'library_ms': times['library_ms'], 'library': bwd_lib,
     }, {
-        'name': 'msda_dattn', **common,
+        'name': 'msda_dattn', **common, **petr_launches('msda_dattn'),
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:348',
         'launches': train_launches['msda_dattn'],
@@ -1889,7 +2306,7 @@ def main():
                    'f32), loc and weights gradients only',
         'library_all_grads_ms': times['library_ms'],
     }, {
-        'name': 'osa_fused', **common,
+        'name': 'osa_fused', **common, **petr_launches('osa_fused'),
         'source': 'far3d_tpu_torch/csrc/osa_fused.cu',
         'replaces': 'tools/dev_micro_osa_pallas.py:59',
         'launches': path['launches'],
@@ -1940,6 +2357,22 @@ def main():
         'ms_per_frame_bf16': serve['bf16_frame_ms'],
         'stage_rel_l2': serve['rel_l2'],
         'cli_test': serve_cli,
+        **petr_launches(*qconv_cuda.NAMES.values()),
+        'streampetr_launches_by_route': {
+            'tma_wgmma': petr['launches'][qconv_cuda.NAMES['tma']],
+            'mma_sync': petr['launches'][qconv_cuda.NAMES['mma']]},
+        'streampetr_site_routes': petr['site_routes'],
+        'streampetr_ms': petr['ms'], 'streampetr_ms_cold_l2': petr['cold'],
+        'streampetr_first_version_ms': petr['first_ms'],
+        'streampetr_plain_ms': petr['plain_ms'],
+        'streampetr_bound_ms': petr['bound_ms'],
+        'streampetr_bound_by': petr['bound_by'],
+        'streampetr_library_ms': petr['library_ms'],
+        'streampetr_cudnn_bf16_conv_ms': petr['cudnn_ms'],
+        'streampetr_int8_tera_ops_per_frame': petr['ops'] / 1e12,
+        'streampetr_int8_backbone_ms': petr['int8_backbone_ms'],
+        'streampetr_bf16_backbone_ms': petr['bf16_backbone_ms'],
+        'streampetr_stage_rel_l2': petr['rel_l2'],
     }, {
         'name': 'ese_requant', **common,
         'source': 'far3d_tpu_torch/csrc/ese_requant.cu',
@@ -1962,7 +2395,22 @@ def main():
         'library': 'the PyTorch sequence it replaces (mean, gate, product, '
                    'identity add, requantize), summed over the 16 blocks',
         'int8_backbone_ese_requant_ms': serve['int8_tail_ms'],
+        **petr_launches(ese_requant_cuda.NAME),
+        'streampetr_ms': petr['tail']['ms'],
+        'streampetr_ms_cold_l2': petr['tail']['cold'],
+        'streampetr_plain_ms': petr['tail']['plain_ms'],
+        'streampetr_bound_ms': petr['tail']['bound_ms'],
+        'streampetr_library_ms': petr['tail']['library_ms'],
+        'streampetr_torch_sequence_equal_share':
+            petr['tail']['equal_share'],
     }]}
+    log('StreamPETR (phase 18): ' + json.dumps({
+        'cross_attention': petr['attn'],
+        'bf16_frame_busy_ms': petr['bf16_frame_busy_ms'],
+        'int8_backbone_qconv_ms': petr['int8_qconv_ms'],
+        'int8_backbone_ese_requant_ms': petr['int8_tail_ms'],
+        'off_tma_sites': petr['off_tma'], 'train': petr_train,
+        'dataset_cli': petr_data}))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -8,9 +8,12 @@ drawing filled circles (``cv2.circle``) and encoding the images
 port does these itself:
 
 * ``write_png`` / ``read_png``: 8-bit RGB PNG. The writer stores rows with
-  filter 0 and zlib level 1. The reader decodes filter types 0-2 (None, Sub,
-  Up), vectorised over rows, and raises on 3-4 (Average, Paeth), which
-  encoders such as OpenCV's use: it never decodes such a file wrongly.
+  filter 0 and zlib level 1. The reader decodes all five filter types of
+  the PNG specification: a file of types 0-2 (None, Sub, Up) with running
+  sums vectorised over rows and columns; one with any Average (3) or Paeth
+  (4) row, as OpenCV's and most encoders write, along anti-diagonals of
+  pixels, since those filters predict a byte from its decoded left and
+  upper neighbours.
 * ``read_image``: PNG through ``read_png``; any other file through
   ``cv2.imread``, imported at the call, which raises ``ImportError`` where
   OpenCV is absent. JPEG is not decoded without OpenCV.
@@ -38,7 +41,6 @@ import numpy as np
 import torch
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_FILTER_NAMES = {3: 'Average', 4: 'Paeth'}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -66,8 +68,7 @@ def write_png(path: str, img_bgr: np.ndarray) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced RGB PNG whose rows use filter types
-    0-2 into (H, W, 3) uint8 BGR."""
+    """Decode an 8-bit, non-interlaced RGB PNG into (H, W, 3) uint8 BGR."""
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -93,12 +94,12 @@ def read_png(path: str) -> np.ndarray:
     rows = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
     rows = rows.reshape(h, 1 + 3 * w)
     ftype = rows[:, 0]
-    bad = sorted(set(np.unique(ftype).tolist()) - {0, 1, 2})
+    bad = sorted(set(np.unique(ftype).tolist()) - {0, 1, 2, 3, 4})
     if bad:
-        names = ', '.join(f'{t} ({_FILTER_NAMES.get(t, "unknown")})'
-                          for t in bad)
-        raise ValueError(f'{path}: PNG filter type {names} is not decoded; '
-                         'only types 0-2 (None, Sub, Up) are')
+        raise ValueError(f'{path}: PNG filter type {bad} does not exist')
+    if (ftype > 2).any():
+        out = _unfilter_diagonals(rows[:, 1:].reshape(h, w, 3), ftype)
+        return out[..., [2, 1, 0]]
     out = rows[:, 1:].copy()
     sub = ftype == 1
     if sub.any():      # Sub: a running sum along the row, per channel
@@ -112,6 +113,35 @@ def read_png(path: str) -> np.ndarray:
         before = np.where((start > 0)[:, None], total[start - 1], 0)
         out = (total - before).astype(np.uint8)
     return out.reshape(h, w, 3)[..., [2, 1, 0]]
+
+
+def _unfilter_diagonals(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """Undo the row filters of the PNG specification (section 9.2) on
+    (H, W, 3) filtered bytes, whatever mix of types 0-4 the rows use. Byte
+    x of row y is raw + predictor(a, b, c) mod 256 with a its decoded left
+    neighbour (one pixel, 3 bytes, back), b the one above, c the one above
+    a; Average predicts floor((a + b) / 2), Paeth whichever of a, b, c is
+    nearest a + b - c (ties to a, then b). Every pixel of an anti-diagonal
+    y + x = k depends only on diagonals k - 1 and k - 2, so each diagonal is
+    one vectorised step: h + w - 1 steps."""
+    h, w, _ = raw.shape
+    out = np.zeros((h + 1, w + 1, 3), np.int16)   # a zero row and column
+    px = raw.astype(np.int16)
+    kinds = ftype.astype(np.int16)
+    for k in range(h + w - 1):
+        y = np.arange(max(0, k - w + 1), min(h, k + 1))
+        x = k - y
+        a = out[y + 1, x]
+        b = out[y, x + 1]
+        c = out[y, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        t = kinds[y][:, None]
+        pred = np.select([t == 1, t == 2, t == 3, t == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[y + 1, x + 1] = (px[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
 
 
 def read_image(path: str) -> np.ndarray:

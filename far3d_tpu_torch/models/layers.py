@@ -43,6 +43,16 @@ class GroupNorm(nn.GroupNorm):
                             self.bias.to(x.dtype), self.eps)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in the input's dtype (flax's
+    ``LayerNorm(dtype=x.dtype)``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm that always normalizes with its stored running statistics
     (the reference runs the backbone BN with norm_eval=True). The scale and

@@ -8,7 +8,7 @@ cuDNN's bf16 convolutions prefer; convolutions keep that layout.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -125,15 +125,26 @@ class FPN(nn.Module):
             + [_ConvModule(oc, oc, 3, stride=2, padding=1)
                for _ in range(len(used), cfg.num_outs)])
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                level: Optional[int] = None):
+        """The num_outs outputs; with `level` (below the number of inputs
+        used) only that output, from the laterals its top-down sum reads and
+        its own 3x3 conv."""
         c = self.cfg
         used = list(inputs[c.start_level:])
         n_used = len(used)
-        laterals = [conv(x) for conv, x in zip(self.lateral_convs, used)]
-        for i in range(n_used - 1, 0, -1):
+        first = 0 if level is None else level
+        if not 0 <= first < n_used:
+            raise ValueError(f'FPN level {level} of {n_used} inputs used')
+        laterals = [None] * first + [
+            conv(x) for conv, x in zip(self.lateral_convs[first:],
+                                       used[first:])]
+        for i in range(n_used - 1, first, -1):
             h, w = laterals[i - 1].shape[-2:]
             up = F.interpolate(laterals[i], scale_factor=2, mode='nearest')
             laterals[i - 1] = laterals[i - 1] + up[..., :h, :w]
+        if level is not None:
+            return self.fpn_convs[level](laterals[level])
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_used)]
         src = outs[-1]
         for i in range(n_used, c.num_outs):

@@ -195,16 +195,14 @@ def build_quant_vovnet(backbone: VoVNet, amax: Dict[str, float],
 
 
 @torch.inference_mode()
-def quantize_detector_backbone(model, calib_images: Sequence[torch.Tensor]
-                               ) -> Dict:
-    """One-call serving API: a ``Far3D`` and a few image batches (uint8 or
-    normalized float, (B, N, H, W, 3)) -> the quantized backbone tree, to
-    pass as ``Far3D.forward(..., quant_backbone=tree)`` or
-    ``eval.runner.run_inference(..., quant_tree=tree)``."""
-    cfg = model.cfg
-    device = next(model.parameters()).device
-    mean = torch.tensor(cfg.data.img_mean, device=device)
-    std = torch.tensor(cfg.data.img_std, device=device)
+def _quantize_backbone(backbone: VoVNet, img_mean: Sequence[float],
+                       img_std: Sequence[float],
+                       calib_images: Sequence[torch.Tensor]) -> Dict:
+    """Calibrate `backbone` on image batches (uint8 or normalized float,
+    (B, N, H, W, 3)) and build its quantized tree."""
+    device = next(backbone.parameters()).device
+    mean = torch.tensor(img_mean, device=device)
+    std = torch.tensor(img_std, device=device)
     batches = []
     for img in calib_images:
         img = torch.as_tensor(img).to(device)
@@ -212,9 +210,30 @@ def quantize_detector_backbone(model, calib_images: Sequence[torch.Tensor]
             img = (img.float() - mean) / std
         batches.append(img.reshape(-1, *img.shape[-3:]).to(torch.bfloat16)
                        .permute(0, 3, 1, 2))
-    amax = calibrate_vovnet(model.img_backbone, batches)
-    return build_quant_vovnet(model.img_backbone, amax, cfg.data.img_mean,
-                              cfg.data.img_std)
+    amax = calibrate_vovnet(backbone, batches)
+    return build_quant_vovnet(backbone, amax, img_mean, img_std)
+
+
+def quantize_detector_backbone(model, calib_images: Sequence[torch.Tensor]
+                               ) -> Dict:
+    """One-call serving API: a ``Far3D`` and a few image batches (uint8 or
+    normalized float, (B, N, H, W, 3)) -> the quantized backbone tree, to
+    pass as ``Far3D.forward(..., quant_backbone=tree)`` or
+    ``eval.runner.run_inference(..., quant_tree=tree)``."""
+    return _quantize_backbone(model.img_backbone, model.cfg.data.img_mean,
+                              model.cfg.data.img_std, calib_images)
+
+
+def quantize_petr_backbone(model, calib_images: Sequence[torch.Tensor]
+                           ) -> Dict:
+    """The StreamPETR twin of ``quantize_detector_backbone`` (quant.py:
+    209-225): the same calibration, folded with the module-level
+    ``IMG_MEAN`` / ``IMG_STD`` that the model applies to uint8 images. Pass
+    the tree as ``StreamPETR.forward(..., quant_backbone=tree)`` or
+    ``eval.petr_runner.run_inference_petr(..., quant_tree=tree)``."""
+    from ..config import IMG_MEAN, IMG_STD
+    return _quantize_backbone(model.img_backbone, IMG_MEAN, IMG_STD,
+                              calib_images)
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,18 @@ The JAX package's optax chain, reproduced step for step:
     then cosine to lr * min_lr_ratio, evaluated at optax's count (0 for the
     first update);
   * an optional EMA of the parameters with the (1 + step) / (10 + step)
-    ramp (off by default).
-Layer-wise LR decay (``layer_decay != 1``) is unused by the shipped config
-and not ported.
+    ramp (off by default);
+  * layer-wise LR decay (``layer_decay != 1``, optim.py:60-75,84-101; unused
+    by the shipped config): a group per backbone depth i of n = 4 (the stem
+    and stage 2 at 0, stages 3-5 at 1-3) and the rest at n, each at
+    lr x decay^(n - i), in place of the backbone multiplier; the frozen
+    parameters stay frozen.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 from torch import nn
@@ -46,26 +49,55 @@ def lr_at(cfg: TrainConfig, step: int) -> float:
     return cfg.lr * ((1.0 - cfg.min_lr_ratio) * cosine + cfg.min_lr_ratio)
 
 
-def param_groups(model: nn.Module, cfg: TrainConfig) -> Tuple[Dict, Dict]:
-    """(main, backbone) param groups; freezes the FROZEN parameters."""
-    main, backbone = [], []
+def _freeze(model: nn.Module):
+    """The trainable (name, parameter) pairs; freezes the FROZEN ones."""
+    out = []
     for name, p in model.named_parameters():
         if any(f in name for f in FROZEN):
             p.requires_grad_(False)
-        elif name.startswith(BACKBONE_PREFIX):
-            backbone.append(p)
         else:
-            main.append(p)
+            out.append((name, p))
+    return out
+
+
+def param_groups(model: nn.Module, cfg: TrainConfig) -> Tuple[Dict, Dict]:
+    """(main, backbone) param groups; freezes the FROZEN parameters."""
+    main, backbone = [], []
+    for name, p in _freeze(model):
+        (backbone if name.startswith(BACKBONE_PREFIX) else main).append(p)
     return ({'params': main, 'lr_mult': 1.0},
             {'params': backbone, 'lr_mult': cfg.backbone_lr_mult})
 
 
+def layer_depth(name: str, num_layers: int) -> int:
+    """make_layerwise_decay_labels (optim.py:84-101) for a port parameter
+    name: the depth of a backbone parameter (stem 0, stage s at s - 2, at
+    most num_layers - 1), num_layers for every other one."""
+    if not name.startswith(BACKBONE_PREFIX):
+        return num_layers
+    top = name[len(BACKBONE_PREFIX):].split('.')[0]
+    if top.startswith('stage') and top[5:].isdigit():
+        return min(int(top[5:]) - 2, num_layers - 1)
+    return 0
+
+
+def layer_decay_groups(model: nn.Module, cfg: TrainConfig,
+                       num_layers: int = 4) -> List[Dict]:
+    """A group per depth with lr_mult = decay^(num_layers - depth); freezes
+    the FROZEN parameters."""
+    by_depth: Dict[int, List] = {}
+    for name, p in _freeze(model):
+        by_depth.setdefault(layer_depth(name, num_layers), []).append(p)
+    return [{'params': by_depth[d],
+             'lr_mult': cfg.layer_decay ** (num_layers - d)}
+            for d in sorted(by_depth)]
+
+
 def make_optimizer(model: nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
-    if cfg.layer_decay != 1.0:
-        raise NotImplementedError('layer-wise LR decay is not ported')
-    return torch.optim.AdamW(param_groups(model, cfg), lr=lr_at(cfg, 0),
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=cfg.weight_decay)
+    groups = (layer_decay_groups(model, cfg) if cfg.layer_decay != 1.0
+              else param_groups(model, cfg))
+    return torch.optim.AdamW(groups, lr=lr_at(cfg, 0), betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=cfg.weight_decay)
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -77,9 +109,13 @@ def clip_and_step(optimizer: torch.optim.AdamW, cfg: TrainConfig,
                   step: int) -> torch.Tensor:
     """Clip the gradients by global norm as optax does, set the scheduled
     learning rates for update number `step` (0-based) and step. Returns the
-    unclipped global norm."""
-    params = [p for group in optimizer.param_groups for p in group['params']
-              if p.grad is not None]
+    unclipped global norm. A parameter that the loss does not reach gets a
+    zero gradient, as ``jax.grad`` gives it, so that AdamW still decays it
+    as optax does (StreamPETR leaves the FPN levels it does not read)."""
+    params = [p for group in optimizer.param_groups for p in group['params']]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     norm = global_norm(grads)
     scale = torch.where(norm < cfg.grad_clip_norm, torch.ones_like(norm),

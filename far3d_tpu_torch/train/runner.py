@@ -15,7 +15,9 @@ Randomness: each step re-seeds a CPU generator (grid mask, DN) and one on
 the device (dropout) from ``cfg.train.seed`` and the step number, as the JAX
 step folds the step into its key (step.py:98-99), so a resumed run draws
 what an uninterrupted one draws. One process, one device: data parallelism
-across cards is not ported.
+across cards is not ported. ``train_loop`` is the loop of both model
+families: ``run_training`` drives Far3D through it, ``run_petr_training``
+StreamPETR (``train/petr_step.py``; the GT-depth switch does not apply).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ..config import Far3DConfig
+from ..config import Far3DConfig, TrainConfig
 from ..entry import build_model, resolve_device
 from ..utils.checkpoint import CheckpointManager
 from ..utils.convert import init_state_dict, load_reference_checkpoint
@@ -63,7 +65,6 @@ def run_training(cfg: Far3DConfig,
     traces steps profile_at .. profile_at + 2 into ``work_dir/trace.json``.
     Runs on the card unless `device` says otherwise."""
     tc = cfg.train
-    max_iters = max_iters or tc.total_iters
     device = resolve_device(device)
     model = build_model(cfg, device, weights=init_state_dict(cfg, tc.seed))
     if load_from:
@@ -72,6 +73,49 @@ def run_training(cfg: Far3DConfig,
         log.info('loaded %s (%d reference keys not found, kept init)',
                  load_from, len(missing))
     state, tstate = create_train_state(cfg, model, batch=batch_size)
+
+    def step(state, tstate, batch, it, noise_gen, dropout_gen):
+        use_gt = it < tc.use_gt_depth_until_iter          # UseGtDepthHook
+        return train_step(cfg, state, tstate, batch, noise_gen, dropout_gen,
+                          use_gt_depth=use_gt)
+
+    return train_loop(state, tstate, step, tc, loader, work_dir, device,
+                      resume, max_iters, profile_at, eval_fn)
+
+
+def run_petr_training(cfg, train_cfg: TrainConfig, loader, work_dir: str,
+                      batch_size: int, resume: bool = True,
+                      max_iters: Optional[int] = None, eval_fn=None,
+                      device=None) -> TrainState:
+    """``run_training`` for StreamPETR (a ``StreamPETRConfig`` and its
+    ``train_cfg``): the model starts from ``petr_init_state_dict`` seeded by
+    ``train_cfg.seed``; each step is ``train/petr_step.py``'s; the loop,
+    logs, checkpoints and resume are the same."""
+    from ..entry import build_petr_model
+    from ..utils.convert import petr_init_state_dict
+    from .petr_step import create_petr_train_state, petr_train_step
+    device = resolve_device(device)
+    model = build_petr_model(cfg, device, weights=petr_init_state_dict(
+        cfg, train_cfg.seed))
+    state, tstate = create_petr_train_state(model, train_cfg, batch_size)
+
+    def step(state, tstate, batch, it, noise_gen, dropout_gen):
+        return petr_train_step(cfg, train_cfg, state, tstate, batch,
+                               noise_gen, dropout_gen)
+
+    return train_loop(state, tstate, step, train_cfg, loader, work_dir,
+                      device, resume, max_iters, eval_fn=eval_fn)
+
+
+def train_loop(state: TrainState, tstate, step_fn, tc: TrainConfig, loader,
+               work_dir: str, device: torch.device, resume: bool = True,
+               max_iters: Optional[int] = None,
+               profile_at: Optional[int] = None, eval_fn=None) -> TrainState:
+    """The loop of both families: ``step_fn(state, tstate, batch, it,
+    noise_gen, dropout_gen) -> (state, tstate, metrics)`` until step
+    `max_iters` (default ``tc.total_iters``), with the logs, saves, resume,
+    evaluation and profiling that ``run_training`` describes."""
+    max_iters = max_iters or tc.total_iters
     ckpt = CheckpointManager(work_dir, max_to_keep=tc.keep_checkpoints,
                              save_interval=tc.checkpoint_every)
     if resume and ckpt.restore(state) is not None:
@@ -97,10 +141,8 @@ def run_training(cfg: Far3DConfig,
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         noise_gen.manual_seed(step_seed(tc.seed, it))
         dropout_gen.manual_seed(step_seed(tc.seed, it))
-        use_gt = it < tc.use_gt_depth_until_iter          # UseGtDepthHook
-        state, tstate, metrics = train_step(cfg, state, tstate, batch,
-                                            noise_gen, dropout_gen,
-                                            use_gt_depth=use_gt)
+        state, tstate, metrics = step_fn(state, tstate, batch, it,
+                                         noise_gen, dropout_gen)
         if prof is not None and it == profile_at + 2:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(f'{work_dir}/trace.json')

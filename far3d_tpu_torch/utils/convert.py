@@ -6,6 +6,9 @@ a reference checkpoint loads with ``load_state_dict`` directly. The mapping
 between those keys and the JAX package's flax variable tree is a copy of
 ``_build_mapping`` and the layout transforms of
 ``far3d_tpu/utils/torch_convert.py``; ``from_jax_variables`` runs it backwards.
+StreamPETR has no reference checkpoint here: its port names are the flax
+tree's below the shared backbone and neck, and ``petr_from_jax_variables``
+carries the JAX package's StreamPETR variables across.
 """
 
 from __future__ import annotations
@@ -16,62 +19,84 @@ import numpy as np
 import torch
 
 
-def _build_mapping(cfg) -> List[Tuple[Tuple[str, ...], str, str]]:
-    """[(flax path (collection, *keys), reference key, kind)]"""
-    m: List[Tuple[Tuple[str, ...], str, str]] = []
+Mapping = List[Tuple[Tuple[str, ...], str, str]]
 
-    def conv_bn(our_prefix: Tuple[str, ...], ref_prefix: str,
-                stats_col: str = 'stats'):
-        m.append((('params',) + our_prefix + ('conv', 'kernel'),
-                  ref_prefix + '/conv.weight', 'conv'))
-        m.append((('params',) + our_prefix + ('bn', 'scale'),
-                  ref_prefix + '/norm.weight', 'copy'))
-        m.append((('params',) + our_prefix + ('bn', 'bias'),
-                  ref_prefix + '/norm.bias', 'copy'))
-        m.append(((stats_col,) + our_prefix + ('bn', 'mean'),
-                  ref_prefix + '/norm.running_mean', 'copy'))
-        m.append(((stats_col,) + our_prefix + ('bn', 'var'),
-                  ref_prefix + '/norm.running_var', 'copy'))
 
-    def linear(our_prefix: Tuple[str, ...], ref_prefix: str):
-        m.append((('params',) + our_prefix + ('kernel',),
-                  ref_prefix + '.weight', 'lin'))
+def _conv_bn(m: Mapping, our_prefix: Tuple[str, ...], ref_prefix: str,
+             stats_col: str = 'stats'):
+    m.append((('params',) + our_prefix + ('conv', 'kernel'),
+              ref_prefix + '/conv.weight', 'conv'))
+    m.append((('params',) + our_prefix + ('bn', 'scale'),
+              ref_prefix + '/norm.weight', 'copy'))
+    m.append((('params',) + our_prefix + ('bn', 'bias'),
+              ref_prefix + '/norm.bias', 'copy'))
+    m.append(((stats_col,) + our_prefix + ('bn', 'mean'),
+              ref_prefix + '/norm.running_mean', 'copy'))
+    m.append(((stats_col,) + our_prefix + ('bn', 'var'),
+              ref_prefix + '/norm.running_var', 'copy'))
+
+
+def _linear(m: Mapping, our_prefix: Tuple[str, ...], ref_prefix: str,
+            kind: str = 'lin'):
+    m.append((('params',) + our_prefix + ('kernel',),
+              ref_prefix + '.weight', kind))
+    m.append((('params',) + our_prefix + ('bias',),
+              ref_prefix + '.bias', 'flat' if kind == 'heads_in' else 'copy'))
+
+
+def _conv2d(m: Mapping, our_prefix: Tuple[str, ...], ref_prefix: str,
+            bias: bool = True):
+    m.append((('params',) + our_prefix + ('kernel',),
+              ref_prefix + '.weight', 'conv'))
+    if bias:
         m.append((('params',) + our_prefix + ('bias',),
                   ref_prefix + '.bias', 'copy'))
 
-    def conv2d(our_prefix: Tuple[str, ...], ref_prefix: str, bias=True):
-        m.append((('params',) + our_prefix + ('kernel',),
-                  ref_prefix + '.weight', 'conv'))
-        if bias:
-            m.append((('params',) + our_prefix + ('bias',),
-                      ref_prefix + '.bias', 'copy'))
 
-    def layernorm(our_prefix: Tuple[str, ...], ref_prefix: str):
-        m.append((('params',) + our_prefix + ('scale',),
-                  ref_prefix + '.weight', 'copy'))
-        m.append((('params',) + our_prefix + ('bias',),
-                  ref_prefix + '.bias', 'copy'))
+def _layernorm(m: Mapping, our_prefix: Tuple[str, ...], ref_prefix: str):
+    m.append((('params',) + our_prefix + ('scale',),
+              ref_prefix + '.weight', 'copy'))
+    m.append((('params',) + our_prefix + ('bias',),
+              ref_prefix + '.bias', 'copy'))
 
-    # ---- backbone (vovnet.py naming) ----------------------------------
+
+def _backbone_neck_mapping(cfg, m: Mapping) -> None:
+    """The VoVNet (vovnet.py naming) and the mmdet FPN, shared by Far3D and
+    StreamPETR."""
     for k in (1, 2, 3):
-        conv_bn(('backbone', f'stem{k}'), f'img_backbone.stem.stem_{k}')
+        _conv_bn(m, ('backbone', f'stem{k}'), f'img_backbone.stem.stem_{k}')
     for si, nblocks in enumerate(cfg.backbone.blocks_per_stage):
         s = si + 2
         for b in range(nblocks):
             ours = ('backbone', f'stage{s}_block{b}')
             ref = f'img_backbone.stage{s}.OSA{s}_{b + 1}'
             for i in range(cfg.backbone.layers_per_block):
-                conv_bn(ours + (f'layer{i}',),
-                        f'{ref}.layers.{i}.OSA{s}_{b + 1}_{i}')
-            conv_bn(ours + ('concat',), f'{ref}.concat.OSA{s}_{b + 1}_concat')
-            conv2d(ours + ('ese', 'fc'), f'{ref}.ese.fc')
-
-    # ---- neck (mmdet FPN naming) ---------------------------------------
+                _conv_bn(m, ours + (f'layer{i}',),
+                         f'{ref}.layers.{i}.OSA{s}_{b + 1}_{i}')
+            _conv_bn(m, ours + ('concat',),
+                     f'{ref}.concat.OSA{s}_{b + 1}_concat')
+            _conv2d(m, ours + ('ese', 'fc'), f'{ref}.ese.fc')
     n_used = len(cfg.neck.in_channels) - cfg.neck.start_level
     for i in range(n_used):
-        conv2d(('neck', f'lateral{i}'), f'img_neck.lateral_convs.{i}.conv')
+        _conv2d(m, ('neck', f'lateral{i}'), f'img_neck.lateral_convs.{i}.conv')
     for i in range(cfg.neck.num_outs):
-        conv2d(('neck', f'fpn{i}'), f'img_neck.fpn_convs.{i}.conv')
+        _conv2d(m, ('neck', f'fpn{i}'), f'img_neck.fpn_convs.{i}.conv')
+
+
+def _build_mapping(cfg) -> Mapping:
+    """[(flax path (collection, *keys), reference key, kind)] of Far3D."""
+    m: Mapping = []
+
+    def linear(our_prefix, ref_prefix):
+        _linear(m, our_prefix, ref_prefix)
+
+    def conv2d(our_prefix, ref_prefix, bias=True):
+        _conv2d(m, our_prefix, ref_prefix, bias)
+
+    def layernorm(our_prefix, ref_prefix):
+        _layernorm(m, our_prefix, ref_prefix)
+
+    _backbone_neck_mapping(cfg, m)
 
     # ---- 2D roi head ----------------------------------------------------
     for l in range(len(cfg.roi2d.strides)):
@@ -162,6 +187,111 @@ def _build_mapping(cfg) -> List[Tuple[Tuple[str, ...], str, str]]:
     return m
 
 
+def _petr_mapping(cfg) -> Mapping:
+    """[(flax path, port key, kind)] of StreamPETR: the backbone and neck
+    under Far3D's names, the head ``pts_bbox_head`` under the flax tree's
+    (``pts_head``) names. A flax ``DenseGeneral`` into heads (C, H, D) is a
+    torch ``Linear`` (H*D, C), its (H, D) bias flat; one out of heads
+    (H, D, C) is a ``Linear`` (C, H*D)."""
+    m: Mapping = []
+    _backbone_neck_mapping(cfg, m)
+    F, P = ('pts_head',), 'pts_bbox_head'
+    _conv2d(m, F + ('input_proj',), f'{P}.input_proj')
+    _linear(m, F + ('pe', 'pe_fc1'), f'{P}.pe.pe_fc1')
+    _linear(m, F + ('pe', 'pe_fc2'), f'{P}.pe.pe_fc2')
+    for name in ('reference_points', 'pseudo_reference_points'):
+        m.append((('params',) + F + (name,), f'{P}.{name}', 'copy'))
+    _linear(m, F + ('query_embedding', 'dense0'), f'{P}.query_embedding.0')
+    _linear(m, F + ('query_embedding', 'dense1'), f'{P}.query_embedding.2')
+    if cfg.with_ego_pos:
+        for mln in ('ego_pose_pe', 'ego_pose_memory'):
+            _linear(m, F + (mln, 'reduce'), f'{P}.{mln}.reduce.0')
+            _linear(m, F + (mln, 'gamma'), f'{P}.{mln}.gamma')
+            _linear(m, F + (mln, 'beta'), f'{P}.{mln}.beta')
+    _linear(m, F + ('time_fc',), f'{P}.time_fc')
+    _layernorm(m, F + ('time_ln',), f'{P}.time_ln')
+    for name in ('cls_fc0', 'cls_fc1', 'cls_out', 'reg_fc0', 'reg_fc1',
+                 'reg_out'):
+        _linear(m, F + (name,), f'{P}.{name}')
+    for name in ('cls_ln0', 'cls_ln1'):
+        _layernorm(m, F + (name,), f'{P}.{name}')
+    for i in range(cfg.num_layers):
+        L, R = F + ('decoder', f'layer{i}'), f'{P}.decoder.layer{i}'
+        for attn, parts, out in (
+                ('self_attn', ('query', 'key', 'value'), 'out'),
+                ('cross_attn', ('q_proj', 'k_proj', 'v_proj'), 'out_proj')):
+            for part in parts:
+                _linear(m, L + (attn, part), f'{R}.{attn}.{part}', 'heads_in')
+            _linear(m, L + (attn, out), f'{R}.{attn}.{out}', 'mha_out_w')
+        for ni in range(3):
+            _layernorm(m, L + (f'norm{ni}',), f'{R}.norm{ni}')
+        _linear(m, L + ('ffn', 'fc1'), f'{R}.ffn.layers.0.0')
+        _linear(m, L + ('ffn', 'fc2'), f'{R}.ffn.layers.1')
+    return m
+
+
+def petr_from_jax_variables(variables: Dict[str, Any],
+                            cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's StreamPETR variables (numpy leaves: 'params' and
+    the backbone's 'stats') -> the port's state dict (f32 CPU tensors)."""
+    out = {}
+    for path, key, kind in _petr_mapping(cfg):
+        node = variables
+        for k in path:
+            node = node[k]
+        out[key] = torch.from_numpy(np.array(
+            _to_reference(np.asarray(node, np.float32), kind)))
+    return out
+
+
+def petr_key_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """The port's StreamPETR state-dict keys and shapes, in the mapping's
+    order, read off the model built on the meta device."""
+    from ..models.streampetr import StreamPETR
+    with torch.device('meta'):
+        sd = StreamPETR(cfg).state_dict()
+    return {key: tuple(sd[key].shape) for _, key, _ in _petr_mapping(cfg)}
+
+
+def random_petr_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Seeded random StreamPETR weights, fan-in scaled as
+    ``random_reference_state_dict``'s, for the full-width runs."""
+    return _random_weights(petr_key_shapes(cfg), np.random.default_rng(seed))
+
+
+def petr_init_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """StreamPETR's initial weights for training from scratch, from the
+    flax initializers of the JAX model (in distribution; the draws differ):
+    lecun-normal kernels (fan-in the input features, as flax's
+    ``DenseGeneral`` counts them) and zero biases, norm scales 1 and biases
+    0, BN statistics 0 and 1, reference points U(0, 1), the MLN's
+    zero-kernel ``gamma`` (bias 1) and ``beta``, and the focal prior
+    -log(99) of ``cls_out``'s bias (streampetr.py:182-193)."""
+    rng = np.random.default_rng(seed)
+    prior = -float(np.log((1 - 0.01) / 0.01))
+    sd: Dict[str, np.ndarray] = {}
+    for key, s in petr_key_shapes(cfg).items():
+        module = key.rsplit('.', 2)[-2] if key.count('.') >= 1 else ''
+        if key.endswith('running_mean'):
+            v = np.zeros(s)
+        elif key.endswith('running_var'):
+            v = np.ones(s)
+        elif key.endswith('reference_points'):
+            v = rng.uniform(0.0, 1.0, s)
+        elif module in ('gamma', 'beta'):
+            v = np.ones(s) if key.endswith('gamma.bias') else np.zeros(s)
+        elif key.endswith('.weight') and len(s) == 1:
+            v = np.ones(s)
+        elif key.endswith('.weight'):
+            v = _truncated_normal(rng, s, np.sqrt(1.0 / int(np.prod(s[1:]))))
+        elif key.endswith('cls_out.bias'):
+            v = np.full(s, prior)
+        else:
+            v = np.zeros(s)
+        sd[key] = v.astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
 def _to_reference(value: np.ndarray, kind: str) -> np.ndarray:
     """Inverse of the JAX package's ``_transform`` for the one-to-one kinds:
     flax conv (kh, kw, I, O) -> torch (O, I, kh, kw); flax dense (I, O) ->
@@ -175,6 +305,10 @@ def _to_reference(value: np.ndarray, kind: str) -> np.ndarray:
     if kind.startswith('mha_out_w'):
         heads, hd, c = value.shape                  # flax (heads, hd, C)
         return value.reshape(heads * hd, c).T
+    if kind == 'heads_in':                          # flax (C, heads, hd)
+        return value.reshape(value.shape[0], -1).T
+    if kind == 'flat':
+        return value.reshape(-1)
     raise ValueError(kind)
 
 
@@ -219,8 +353,21 @@ def random_reference_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
     stack stays finite (the pattern of the JAX package's composed parity
     tests). The same numpy draws feed both packages in the tests."""
     rng = np.random.default_rng(seed)
+    sd = {k: v.numpy() for k, v in _random_weights(
+        reference_key_shapes(cfg), rng).items()}
+    # steer the 2D scores so that a moderate number of proposals pass the
+    # 0.1 threshold (obj ~ sigmoid(-1), cls max ~ sigmoid(0))
+    for k in sd:
+        if 'conv_obj' in k and k.endswith('.bias'):
+            sd[k] = (rng.standard_normal(sd[k].shape) * 0.5 - 1.0
+                     ).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def _random_weights(shapes: Dict[str, Tuple[int, ...]],
+                    rng: np.random.Generator) -> Dict[str, torch.Tensor]:
     sd = {}
-    for k, s in reference_key_shapes(cfg).items():
+    for k, s in shapes.items():
         if 'running_var' in k:
             v = rng.uniform(0.5, 1.5, s)
         elif 'running_mean' in k:
@@ -234,12 +381,6 @@ def random_reference_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
         else:
             v = rng.standard_normal(s) * 0.1        # biases
         sd[k] = v.astype(np.float32)
-    # steer the 2D scores so that a moderate number of proposals pass the
-    # 0.1 threshold (obj ~ sigmoid(-1), cls max ~ sigmoid(0))
-    for k in sd:
-        if 'conv_obj' in k and k.endswith('.bias'):
-            sd[k] = (rng.standard_normal(sd[k].shape) * 0.5 - 1.0
-                     ).astype(np.float32)
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 

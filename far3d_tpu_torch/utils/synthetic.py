@@ -2,7 +2,8 @@
 ``far3d_tpu/utils/synthetic.py``'s ``ring_cameras``, ``synthetic_batch`` and
 the learnable dataset writers): pinhole cameras in a ring, random normalized
 images, for training random GT boxes with their 2D boxes and painted depth
-bins, and on-disk AV2-format datasets whose images encode their labels.
+bins, on-disk AV2-format datasets whose images encode their labels, and
+their StreamPETR / nuScenes counterparts.
 
 The writers draw what the JAX package's draw, in the same order from the
 same ``np.random.RandomState``, and write the same infos; the images are PNG
@@ -446,6 +447,152 @@ def make_learnable_dataset_fullsize(info_path: str, root: str,
                     centers2d=g2d_centers,
                     depths=g2d_depths,
                 ),
+            ))
+    with open(info_path, 'wb') as fobj:
+        pickle.dump({'infos': infos}, fobj)
+    return infos
+
+
+def petr_host_shim(cfg, max_gt: int = 8) -> Far3DConfig:
+    """A Far3DConfig with StreamPETR's geometry (cameras, input size, pc
+    range, classes), through which ``inference_inputs`` and
+    ``synthetic_batch`` draw StreamPETR's inputs (the shim of
+    tests/test_petr_train.py:18-28)."""
+    from ..config import DataConfig
+    return Far3DConfig(
+        pc_range=cfg.pc_range, num_classes=cfg.num_classes,
+        data=DataConfig(num_cams=cfg.num_cams, input_hw=tuple(cfg.input_hw),
+                        max_gt=max_gt, max_gt_2d=8))
+
+
+def petr_inference_inputs(cfg, batch: int = 1,
+                          seed: int = 0) -> Dict[str, np.ndarray]:
+    """One frame of StreamPETR inference inputs: ring cameras, random
+    normalized images, identity ego pose, a fresh stream."""
+    out = inference_inputs(petr_host_shim(cfg), batch, seed)
+    del out['intrinsics'], out['extrinsics']
+    return out
+
+
+def petr_synthetic_batch(cfg, batch: int = 1, seed: int = 0,
+                         max_gt: int = 8) -> Dict[str, torch.Tensor]:
+    """A StreamPETR training batch: ``synthetic_batch`` of the shim, the
+    draws of the JAX package's ``synthetic_batch`` of the same shim."""
+    return synthetic_batch(petr_host_shim(cfg, max_gt), batch, seed)
+
+
+def make_learnable_nusc_dataset(info_path: str, root: str, n_scenes: int = 2,
+                                frames_per_scene: int = 8, seed: int = 0,
+                                src_hw=(64, 96), n_boxes: int = 4,
+                                image_format: str = 'png'):
+    """nuScenes-format twin of ``make_learnable_dataset`` for the StreamPETR
+    closed loop (synthetic.py:342-452): an info pkl in StreamPETR's layout
+    and blob images whose appearance encodes the GT (position by
+    projection, depth by shade, class by colour, scene by background).
+
+    Geometry inside ``tiny_petr_config``'s pc range; two cameras
+    (CAM_FRONT +x, CAM_BACK -x), lidar2ego the identity, the ego moving +x,
+    constant global velocities per box; boxes stored 9-dim (x, y,
+    z_bottom, w, l, h, yaw, vx, vy) as the StreamPETR infos carry them.
+    The draws are the JAX writer's; the images are PNG with the same
+    filled circles, or with `image_format` 'jpg' the JAX writer's JPEG
+    files (``cv2.imwrite``; OpenCV must be installed)."""
+    import os
+    import pickle
+
+    if image_format == 'jpg':
+        import cv2
+        write = cv2.imwrite
+    elif image_format == 'png':
+        write = write_png
+    else:
+        raise ValueError(f'image_format {image_format!r}: png or jpg')
+
+    rng = np.random.RandomState(seed)
+    sh, sw = src_hw
+    f = sw * 150.0 / 192.0
+    cx, cy = sw / 2.0, sh / 2.0
+    intr3 = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
+    # sensor2lidar rotations: columns = camera axes (x right, y down, z fwd)
+    # in the lidar / ego frame (x fwd, y left, z up)
+    r_fwd = np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+    r_back = np.array([[0.0, 0, -1], [1, 0, 0], [0, -1, 0]])
+    cam_rots = [r_fwd, r_back]
+    cam_t = np.array([0.0, 0.0, 1.5])
+    ident_q = np.array([1.0, 0, 0, 0])
+
+    class_names = ['car', 'truck', 'bus']        # NUSC_CLASSES 0 / 1 / 3
+    colors = [(60, 220, 60), (220, 60, 60), (60, 60, 220)]
+
+    infos = []
+    for s in range(n_scenes):
+        sgn = np.where(np.arange(n_boxes) % 2 == 0, 1.0, -1.0)
+        y_slots = np.linspace(-1.5, 1.5, n_boxes)
+        glob = np.stack([
+            sgn * rng.uniform(7.0, 9.5, n_boxes),
+            y_slots + rng.uniform(-0.3, 0.3, n_boxes),
+            rng.uniform(1.0, 2.5, n_boxes),
+            rng.uniform(0.8, 1.6, n_boxes),              # w
+            rng.uniform(0.8, 1.6, n_boxes),              # l
+            rng.uniform(0.8, 1.5, n_boxes),              # h
+            rng.uniform(-np.pi, np.pi, n_boxes),         # yaw
+        ], axis=1)
+        vel = np.stack([sgn * rng.uniform(-0.15, 0.15, n_boxes),
+                        rng.uniform(-0.45, 0.45, n_boxes)], axis=1)
+        dt = 0.5
+        labels = rng.choice(len(class_names), n_boxes)
+        for fi in range(frames_per_scene):
+            ego_t = np.array([fi * 0.1, 0.0, 0.0])
+            if fi > 0:
+                glob = glob.copy()
+                glob[:, :2] = glob[:, :2] + vel * dt
+            ego_boxes = glob.copy()
+            ego_boxes[:, :3] -= ego_t
+            cams = {}
+            for c, cam_name in enumerate(['CAM_FRONT', 'CAM_BACK']):
+                bg = 70 + 60 * (s % 2)
+                img = np.full((sh, sw, 3), bg, np.uint8)
+                img[:: 8 + 4 * (s % 3), :] = 40
+                lidar_from_cam_r, lidar_from_cam_t = cam_rots[c], cam_t
+                cam_from_lidar_r = lidar_from_cam_r.T
+                for bi in range(n_boxes):
+                    p = cam_from_lidar_r @ (ego_boxes[bi, :3]
+                                            - lidar_from_cam_t)
+                    if p[2] < 2.0:
+                        continue
+                    u = f * p[0] / p[2] + cx
+                    v = f * p[1] / p[2] + cy
+                    if not (4 <= u < sw - 4 and 4 <= v < sh - 4):
+                        continue
+                    r_px = max(int(f * ego_boxes[bi, 3] / (2 * p[2])), 2)
+                    shade = float(np.clip(60 + (p[2] - 4.5) * 33.0, 60, 255))
+                    color = tuple(ch * shade / 255.0
+                                  for ch in colors[labels[bi]])
+                    fill_circle(img, (int(round(u)), int(round(v))), r_px,
+                                color)
+                cams[cam_name] = dict(
+                    data_path=f'scene{s}/{cam_name}/{fi}.{image_format}',
+                    cam_intrinsic=intr3.copy(),
+                    sensor2lidar_rotation=lidar_from_cam_r.copy(),
+                    sensor2lidar_translation=lidar_from_cam_t.copy(),
+                )
+                path = os.path.join(root, cams[cam_name]['data_path'])
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                write(path, img)
+            boxes9 = np.concatenate([ego_boxes, vel], axis=1).astype(
+                np.float32)
+            boxes9[:, 2] -= boxes9[:, 5] / 2          # gravity -> bottom z
+            infos.append(dict(
+                scene_token=f'scene{s}',
+                timestamp=int((s * frames_per_scene + fi) * dt * 1e6),
+                lidar2ego_rotation=ident_q.copy(),
+                lidar2ego_translation=np.zeros(3),
+                ego2global_rotation=ident_q.copy(),
+                ego2global_translation=ego_t.copy(),
+                cams=cams,
+                gt_boxes=boxes9,
+                gt_names=np.array([class_names[lb] for lb in labels]),
+                valid_flag=np.ones(n_boxes, bool),
             ))
     with open(info_path, 'wb') as fobj:
         pickle.dump({'infos': infos}, fobj)

@@ -5,8 +5,9 @@
 ragged M, stride 2 on odd sizes, 1x1 with the float epilogue), shapes that
 take the TMA kernel (ci = 160 and 224, whose K is not a multiple of 64
 bytes; co = 224; an M ragged in both directions; a wide 1x1; stride 2),
-channel slices of wider buffers in and out (both kernels), and seeded
-operands. Imports numpy and torch only."""
+channel slices of wider buffers in and out (both kernels), seeded
+operands, and, for the card only, every class of StreamPETR's conv sites and
+block tails at its 6 x 320 x 800 input. Imports numpy and torch only."""
 
 import numpy as np
 import torch
@@ -27,6 +28,43 @@ QCONV_SHAPES = {
     'tma_ragged_m': dict(n=2, h=11, w=70, ci=64, co=128, k=3, stride=1),
     'tma_wide_1x1': dict(n=2, h=5, w=9, ci=288, co=256, k=1, stride=1),
     'tma_s2': dict(n=2, h=13, w=18, ci=64, co=32, k=3, stride=2),
+}
+
+# StreamPETR's VoVNet-99 at 6 cameras of 320 x 800: each class of conv site
+# (the stem at 320x800 -> 160x400, stride 2 into stage 2's 80x200, the
+# stages at 80x200, 40x100, 20x50 and 10x25, an odd width past the TMA box)
+# with its real channels and epilogue (the concat convs f32); the camera
+# count cut where the plane is large. Card only: the plain version is a
+# float64 unfold, too slow at these sizes for the CPU suite.
+PETR_QCONV_SHAPES = {
+    'petr_stem1_ci3_s2': dict(n=1, h=320, w=800, ci=3, co=64, k=3, stride=2,
+                              float_out=False),
+    'petr_stem2': dict(n=1, h=160, w=400, ci=64, co=64, k=3, stride=1,
+                       float_out=False),
+    'petr_stem3_s2': dict(n=2, h=160, w=400, ci=64, co=128, k=3, stride=2,
+                          float_out=False),
+    'petr_s2_layer': dict(n=1, h=80, w=200, ci=128, co=128, k=3, stride=1,
+                          float_out=False),
+    'petr_s2_concat': dict(n=1, h=80, w=200, ci=768, co=256, k=1, stride=1,
+                           float_out=True),
+    'petr_s3_layer0': dict(n=2, h=40, w=100, ci=256, co=160, k=3, stride=1,
+                           float_out=False),
+    'petr_s3_layer': dict(n=2, h=40, w=100, ci=160, co=160, k=3, stride=1,
+                          float_out=False),
+    'petr_s3_concat': dict(n=2, h=40, w=100, ci=1312, co=512, k=1, stride=1,
+                           float_out=True),
+    'petr_s4_layer': dict(n=6, h=20, w=50, ci=192, co=192, k=3, stride=1,
+                          float_out=False),
+    'petr_s4_layer0': dict(n=6, h=20, w=50, ci=768, co=192, k=3, stride=1,
+                           float_out=False),
+    'petr_s4_concat': dict(n=6, h=20, w=50, ci=1728, co=768, k=1, stride=1,
+                           float_out=True),
+    'petr_s5_layer': dict(n=6, h=10, w=25, ci=224, co=224, k=3, stride=1,
+                          float_out=False),
+    'petr_s5_layer0': dict(n=6, h=10, w=25, ci=1024, co=224, k=3, stride=1,
+                           float_out=False),
+    'petr_s5_concat': dict(n=6, h=10, w=25, ci=2144, co=1024, k=1, stride=1,
+                           float_out=True),
 }
 
 # Input and output as channel slices [off, off + c) of wider NHWC buffers
@@ -98,6 +136,19 @@ ESE_CASES = {
                             out_pitch=112),
     'wide_identity': dict(n=1, h=4, w=6, c=256, identity=True, xid_pitch=320,
                           out_pitch=None),
+}
+
+# StreamPETR's block tails: stage 2's first block (no identity, a new
+# tensor), a stage-4 identity block writing slice 0 of the next block's
+# concat buffer, stage 5's last block (10 x 25) reading its identity from its
+# own concat buffer.
+PETR_ESE_CASES = {
+    'petr_stage2': dict(n=1, h=80, w=200, c=256, identity=False,
+                        xid_pitch=None, out_pitch=None),
+    'petr_stage4_identity': dict(n=6, h=20, w=50, c=768, identity=True,
+                                 xid_pitch=1728, out_pitch=1744),
+    'petr_stage5_identity': dict(n=6, h=10, w=25, c=1024, identity=True,
+                                 xid_pitch=2144, out_pitch=None),
 }
 
 

@@ -15,8 +15,9 @@ import torch
 
 from _msda_cases import CASES
 from _osa_cases import OSA_SHAPES, assert_osa_close, osa_operands
-from _qconv_cases import (ESE_CASES, QCONV_SHAPES, QCONV_SLICES, SENTINEL,
-                          ese_operands, port_operands, slice_operands)
+from _qconv_cases import (ESE_CASES, PETR_ESE_CASES, PETR_QCONV_SHAPES,
+                          QCONV_SHAPES, QCONV_SLICES, SENTINEL, ese_operands,
+                          port_operands, slice_operands)
 from far3d_tpu_torch.ops import (_build, msda_cuda, osa, osa_cuda,
                                  qconv_cuda, quant)
 from far3d_tpu_torch.ops.qconv import qconv, qconv_reference
@@ -365,13 +366,39 @@ def test_cuda_qconv_channel_sums(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('case', sorted(ESE_CASES))
+@pytest.mark.parametrize('name', sorted(PETR_QCONV_SHAPES))
+def test_cuda_qconv_petr_stage_shapes_bitwise(name, cuda_device):
+    """StreamPETR's conv sites at 6 x 320 x 800 (the stages down to the
+    10 x 25 plane, whose boxes pass the right and bottom edges): the stem's
+    first conv on the mma.sync kernel, every other on TMA + wgmma, bitwise
+    the plain version's; the f32 concat convs' channel sums within f32
+    rounding of the plain sums."""
+    sh = PETR_QCONV_SHAPES[name]
+    ops = port_operands(sh, 5, cuda_device)
+    f32 = sh['float_out']
+    got = qconv(*ops, sh['stride'], f32, channel_sums=f32)
+    torch.cuda.synchronize()
+    y = got[0] if f32 else got
+    assert qconv_cuda.route(ops[0], ops[1], sh['stride'], y) == (
+        'mma' if sh['ci'] == 3 else 'tma')
+    want = qconv_reference(*ops, sh['stride'], f32, channel_sums=f32)
+    if f32:
+        assert torch.equal(y, want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    else:
+        assert torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ESE_CASES) + sorted(PETR_ESE_CASES))
 def test_cuda_ese_requant_matches_reference_bitwise(case, cuda_device):
     """The block tail against its plain version on the same y and gate:
     every product and sum rounded in the same order, so bitwise; the output
-    slice only written; one launch; two runs bitwise equal."""
+    slice only written; one launch; two runs bitwise equal. Also at
+    StreamPETR's block shapes."""
+    cases = {**ESE_CASES, **PETR_ESE_CASES}
     y, gate, r_out, x_id, s_id, out_buf, out = ese_operands(
-        ESE_CASES[case], 0, cuda_device)
+        cases[case], 0, cuda_device)
     before = _build.launch_counts.get('ese_requant', 0)
     got = quant.ese_requant(y, gate, r_out, x_id, s_id, out)
     torch.cuda.synchronize()
@@ -382,7 +409,7 @@ def test_cuda_ese_requant_matches_reference_bitwise(case, cuda_device):
     assert torch.equal(quant.ese_requant(y, gate, r_out, x_id, s_id), got)
     if out is not None:
         assert got.data_ptr() == out.data_ptr()
-        c = ESE_CASES[case]['c']
+        c = cases[case]['c']
         assert (out_buf[..., :16] == SENTINEL).all()
         assert (out_buf[..., 16 + c:] == SENTINEL).all()
 

@@ -1,8 +1,9 @@
 """The port's host data path against the JAX package's, on the CPU.
 
 * ``data/image_io.py``: the PNG writer and reader round-trip bitwise and
-  OpenCV reads the port's PNG to the same array; the reader decodes Sub and
-  Up rows and refuses Average and Paeth; ``fill_circle`` is ``cv2.circle``
+  OpenCV reads the port's PNG to the same array; the reader decodes Sub,
+  Up, Average and Paeth rows, and OpenCV's adaptively filtered files, as
+  ``cv2.imread`` does; ``fill_circle`` is ``cv2.circle``
   pixel for pixel; ``warp_affine_inverse`` is ``cv2.warpAffine(INTER_LINEAR
   | WARP_INVERSE_MAP, BORDER_CONSTANT, 0)`` within WARP_TOL on native AV2
   sources (random uint8) at the pipeline's resize scales and the front
@@ -75,16 +76,20 @@ def test_png_round_trip_and_cv2_reads_it(tmp_path):
 
 def _png_with_filters(rgb, filters):
     """A PNG of `rgb` whose row r is stored with filter type filters[r]
-    (0-2 encoded for real; 3 and 4 only labelled)."""
+    (0-4, encoded as the PNG specification defines them)."""
     h, w, _ = rgb.shape
     raw = rgb.reshape(h, 3 * w).astype(np.int16)
     rows = []
     for r, f in enumerate(filters):
-        line = raw[r].copy()
-        if f == 1:
-            line[3:] = raw[r, 3:] - raw[r, :-3]
-        elif f == 2 and r > 0:
-            line = raw[r] - raw[r - 1]
+        a = np.concatenate([np.zeros(3, np.int16), raw[r, :-3]])
+        b = raw[r - 1] if r > 0 else np.zeros_like(raw[r])
+        c = np.concatenate([np.zeros(3, np.int16), b[:-3]])
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = {0: 0, 1: a, 2: b, 3: (a + b) // 2,
+                4: np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))}[f]
+        line = raw[r] - pred
         rows.append(bytes([f]) + (line % 256).astype(np.uint8).tobytes())
 
     def chunk(kind, data):
@@ -109,11 +114,43 @@ def test_png_reader_decodes_sub_and_up_rows(tmp_path):
 
 @pytest.mark.parametrize('ftype,name', [(3, 'Average'), (4, 'Paeth')])
 def test_png_reader_refuses_average_and_paeth(tmp_path, ftype, name):
-    rgb = np.zeros((3, 4, 3), np.uint8)
-    path = tmp_path / 'f.png'
-    path.write_bytes(_png_with_filters(rgb, [0, ftype, 0]))
-    with pytest.raises(ValueError, match=name):
-        image_io.read_png(str(path))
+    """A file of Average rows and one of Paeth rows (the first row of each,
+    then rows of the other types between them) decode to what
+    ``cv2.imread`` reads, and to the image."""
+    rng = np.random.RandomState(ftype)
+    rgb = rng.randint(0, 256, (11, 13, 3)).astype(np.uint8)
+    rgb[4:8] = np.arange(13 * 3).reshape(13, 3)[None] * 5 % 256  # smooth rows
+    path = tmp_path / f'{name}.png'
+    path.write_bytes(_png_with_filters(
+        rgb, [ftype] * 5 + [0, 1, 2] + [ftype] * 3))
+    want = cv2.imread(str(path))
+    np.testing.assert_array_equal(want, rgb[..., ::-1])
+    np.testing.assert_array_equal(image_io.read_png(str(path)), want)
+
+
+@pytest.mark.parametrize('filters', ['ALL_FILTERS', 'FAST_FILTERS'])
+def test_png_reader_decodes_cv2_adaptive_filters(tmp_path, filters):
+    """PNG files that ``cv2.imwrite`` wrote with its adaptive row filters
+    (every type in one file for ALL_FILTERS) decode equal to ``cv2.imread``
+    on a camera-sized image with smooth and noisy regions."""
+    rng = np.random.RandomState(5)
+    img = np.clip(np.cumsum(rng.standard_normal((90, 160, 3)), axis=1) * 5
+                  + 128, 0, 255).astype(np.uint8)
+    img[30:50] = rng.randint(0, 256, (20, 160, 3))
+    path = str(tmp_path / 'cv.png')
+    cv2.imwrite(path, img, [cv2.IMWRITE_PNG_FILTER,
+                            getattr(cv2, f'IMWRITE_PNG_{filters}')])
+    data, pos, idat = open(path, 'rb').read(), 8, b''
+    while pos < len(data):
+        length, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        idat += data[pos + 8:pos + 8 + length] if kind == b'IDAT' else b''
+        pos += 12 + length
+    types = set(np.frombuffer(zlib.decompress(idat), np.uint8)
+                .reshape(90, 1 + 3 * 160)[:, 0].tolist())
+    if filters == 'ALL_FILTERS':
+        assert {3, 4} <= types, types
+    np.testing.assert_array_equal(image_io.read_png(path), cv2.imread(path))
+    np.testing.assert_array_equal(image_io.read_image(path), img)
 
 
 def test_read_image_without_opencv_names_it(tmp_path, monkeypatch):

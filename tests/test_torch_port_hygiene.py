@@ -20,7 +20,8 @@ def test_import_loads_no_jax():
             'far3d_tpu_torch.ops.msda_cuda, far3d_tpu_torch.ops.osa_cuda, '
             'far3d_tpu_torch.ops.qconv_cuda, far3d_tpu_torch.ops.quant, '
             'far3d_tpu_torch.ops.ese_requant_cuda, '
-            'far3d_tpu_torch.train.step; '
+            'far3d_tpu_torch.train.step, far3d_tpu_torch.train.petr_step, '
+            'far3d_tpu_torch.models.streampetr; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -77,6 +78,14 @@ def test_cuda_backward_wrappers_refuse_cpu_tensors():
     for fn in (msda_dval, msda_dattn):
         with pytest.raises(ValueError, match='CUDA'):
             fn(v, [(2, 2)], loc, w, g)
+
+
+@pytest.mark.parametrize('name', ['petr_entry', 'petr_train_entry'])
+def test_petr_entries_without_a_card_raise(monkeypatch, name):
+    import far3d_tpu_torch.entry as entry_mod
+    from far3d_tpu_torch.models.streampetr import tiny_petr_config
+    with _no_card(monkeypatch):
+        getattr(entry_mod, name)(tiny_petr_config())
 
 
 def test_train_entry_without_a_card_raises(monkeypatch):
@@ -155,6 +164,16 @@ def test_run_training_without_a_card_raises(monkeypatch, tmp_path):
         run_training(tiny_test_config(), iter(()), str(tmp_path), 1)
 
 
+def test_run_inference_petr_without_a_card_raises(monkeypatch):
+    from far3d_tpu_torch.entry import build_petr_model
+    from far3d_tpu_torch.eval.petr_runner import run_inference_petr
+    from far3d_tpu_torch.models.streampetr import tiny_petr_config
+    cfg = tiny_petr_config()
+    model = build_petr_model(cfg, 'cpu')
+    with _no_card(monkeypatch):
+        run_inference_petr(cfg, model, [])
+
+
 def test_run_inference_without_a_card_raises(monkeypatch):
     from far3d_tpu_torch.config import tiny_test_config
     from far3d_tpu_torch.entry import build_model
@@ -169,7 +188,11 @@ def test_run_inference_without_a_card_raises(monkeypatch):
     ('train', ['--data-root', 'missing', '--tiny']),
     ('test', ['--data-root', 'missing', '--checkpoint', 'missing', '--tiny']),
     ('overfit_demo', ['--work', 'missing', '--iters', '1']),
-    ('quant_accuracy', ['--work', 'missing', '--iters', '1'])])
+    ('quant_accuracy', ['--work', 'missing', '--iters', '1']),
+    ('train_nusc', ['--data-root', 'missing', '--tiny']),
+    ('test_nusc', ['--data-root', 'missing', '--random-init', '--tiny']),
+    ('overfit_nusc_demo', ['--work', 'missing', '--iters', '1']),
+    ('quant_accuracy_nusc', ['--work', 'missing', '--iters', '1'])])
 def test_cli_without_a_card_raises(monkeypatch, tmp_path, cli, argv):
     import importlib
     main = importlib.import_module(f'far3d_tpu_torch.cli.{cli}').main
