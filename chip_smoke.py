@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (far3d_tpu_torch) on one NVIDIA card:
-Far3D (phases 1-17) and StreamPETR (phase 18).
+Far3D (phases 1-17), StreamPETR (phase 18), data parallelism and camera
+sharding (phase 19).
 
     python3 chip_smoke.py
 
@@ -127,9 +128,28 @@ Phases, each raising on failure:
      (e) a learnable nuScenes dataset of 2 scenes x 4 frames, 2 cameras of
      PNG at 320x800, in a temporary directory through cli.train_nusc (4
      steps, a checkpoint) and cli.test_nusc on it, bf16 and --quant:
-     finite mAP and NDS.
-Then it prints a JSON line of phase 18's other readings, one JSON line of
-kernels and, last, the device line.
+     finite mAP and NDS;
+ 19. data parallelism and camera sharding (far3d_tpu_torch/parallel/),
+     each rank a process of this script (--rank-worker) with a time limit,
+     a failed rank stopping the others: (a) run_training at full width for
+     3 steps under NCCL at world size 1 (torchrun's variables) against the
+     same run without a group, step 0 bitwise, the gradient MiB
+     all-reduced a step, 6 launches of each MSDA kernel a step; (b) two
+     gloo ranks sharing this card at full width, a lane each of a batch of
+     two, 3 steps: a sha256 of each rank's parameters and buffers equal
+     after every step, finite losses, ms/step and the all-reduces' share
+     (two ranks on one card: no scaling number), peak memory, 6 launches of
+     each MSDA kernel a step a rank; (c) the tiny Far3D and StreamPETR
+     steps, f32 without dropout, two gloo ranks at batch 1 against one
+     process at batch 2 on the card (TINY_TOL, Adam moments, parameters, BN
+     statistics); (d) cli.test on two gloo ranks against one process on
+     phase 16's dataset and checkpoint: the parts' frame order, mAP and
+     CDS equal; (e) make_cam_sharded_infer over [cuda:0] x 7 against the
+     unsharded frame: two f32 frames held at CAM_TOL, then bf16 frames
+     timed, the FPN output held at CAM_FPN_TOL, 6 msda_fwd launches a
+     sharded frame.
+Then it prints a JSON line of phase 18's other readings, one of phase 19's,
+one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
 TF32 is switched off for matmuls and cuDNN convolutions, so that every f32
@@ -137,9 +157,13 @@ comparison here is a full-f32 one; the main path's image side is bf16.
 """
 
 import dataclasses
+import hashlib
 import importlib
 import itertools
 import json
+import os
+import pickle
+import socket
 import statistics
 import subprocess
 import sys
@@ -150,6 +174,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.optimize import linear_sum_assignment
 
 from far3d_tpu_torch.cli import test as cli_test
 from far3d_tpu_torch.cli import test_nusc as cli_test_nusc
@@ -172,6 +197,8 @@ from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.ops.qconv import (out_size, qconv_reference,
                                        requant_epilogue)
+from far3d_tpu_torch.parallel import mesh
+from far3d_tpu_torch.parallel.cam_shard import make_cam_sharded_infer
 from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
                                         make_infer_step, step_from_noise,
                                         train_step)
@@ -181,7 +208,8 @@ from far3d_tpu_torch.train.petr_step import (create_petr_train_state,
                                              petr_step_from_noise)
 from far3d_tpu_torch.utils.checkpoint import CheckpointManager
 from far3d_tpu_torch.utils.convert import (init_state_dict,
-                                           petr_init_state_dict)
+                                           petr_init_state_dict,
+                                           random_reference_state_dict)
 from far3d_tpu_torch.utils.feather import num_rows
 from far3d_tpu_torch.utils.synthetic import (inference_inputs,
                                              make_learnable_dataset_fullsize,
@@ -211,6 +239,20 @@ PETR_FRAMES = 8                # StreamPETR streaming frames of phase 18
 PETR_STEPS = 6                 # its full-width training steps
 PETR_DATA_STEPS = 4            # cli.train_nusc steps from its PNG dataset
 PETR_DATA_HW = (320, 800)      # its cameras: the model's input, no resize
+NCCL_STEPS = 3                 # run_training steps under NCCL at world 1
+DP_STEPS = 3                   # full-width steps of each of two gloo ranks
+CAM_FRAMES = 6                 # camera-sharded frames, and as many unsharded
+RANK_TIMEOUT_S = 600           # a phase-19 process's limit
+# Phase 19e: the seven one-camera slices run the towers at batch 1, the
+# unsharded frame at batch 7, so cuDNN may take other algorithms and sum in
+# another order. With f32 images the detections and the carried state are
+# held at tests/test_cam_shard.py's tolerances (the largest difference
+# against atol + rtol x the largest entry), matched where ties may reorder
+# them (match_frames); with bf16 images, the FPN output (largest difference
+# over largest entry).
+CAM_TOL = dict(scores=(1e-4, 1e-4), boxes=(1e-3, 1e-3),
+               embedding=(1e-4, 1e-4), ref_points=(1e-3, 1e-3))  # rtol, atol
+CAM_FPN_TOL = 5e-2
 # The eight fused blocks against the model's own modules: the model rounds
 # each conv to bf16 and applies the BN as a bf16 multiply and a bf16 add, the
 # kernel applies it in f32 on the f32 sum and rounds once, so each of a
@@ -488,7 +530,14 @@ def hold_card_to_cpu(results, moment_floor=1e-12):
     parameters before them); a moment's atol is 2e-3 of its tensor's
     largest, at least `moment_floor`. Returns (parameters with a gradient,
     (number of moments, number of state-dict entries))."""
-    (mg, sg, ag, before), (mc, sc, ac, _) = results['cuda'], results['cpu']
+    return hold_run(results['cuda'], results['cpu'], moment_floor)
+
+
+def hold_run(got, want, moment_floor=1e-12):
+    """Hold a tiny training run `got` to `want` (each: metrics of each step,
+    state dict after them, Adam first moments, the parameters before them)
+    as ``hold_card_to_cpu`` describes."""
+    (mg, sg, ag, before), (mc, sc, ac, _) = got, want
     for i, (a, b) in enumerate(zip(mg, mc)):
         for k in b:
             torch.testing.assert_close(
@@ -2003,6 +2052,587 @@ def petr_dataset_path(workdir, card):
     return dict(train_s=train_s, eval=out)
 
 
+# ---------------------------------------------------------------- phase 19
+# Data parallelism and camera sharding (far3d_tpu_torch/parallel/). Each
+# rank is a process of this script started with --rank-worker; it prints one
+# RESULT line of JSON that its parent reads.
+
+MSDA_NAMES = (msda_cuda.FWD, msda_cuda.DVAL, msda_cuda.DATTN)
+
+
+class RepeatBatch:
+    """A loader that hands out one batch of CPU tensors forever."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        return itertools.repeat(self.batch)
+
+
+def param_digest(model):
+    """sha256 of every parameter's and buffer's bytes, in state-dict order."""
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def worker_nccl1(work):
+    """19a: run_training at full width for NCCL_STEPS steps without a group,
+    then the same under an NCCL group of one (torchrun's variables)."""
+    cfg = Far3DConfig()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
+    loader = RepeatBatch(synthetic_batch(cfg, 1, 0))
+    runner.run_training(cfg, loader, str(work / 'nogroup'), 1, resume=False,
+                        max_iters=NCCL_STEPS, device='cuda')
+    torch.cuda.empty_cache()
+    rank, world = mesh.init_distributed()
+    backend = torch.distributed.get_backend()
+    sent = []
+    real = mesh.all_reduce_mean_
+
+    def counting(tensors, *args, **kw):
+        sent.append(real(tensors, *args, **kw))
+        return sent[-1]
+
+    mesh.all_reduce_mean_ = counting
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    runner.run_training(cfg, loader, str(work / 'nccl'), 1, resume=False,
+                        max_iters=NCCL_STEPS, device='cuda')
+    launches = {k: _build.launch_counts[k] for k in MSDA_NAMES}
+    mesh.all_reduce_mean_ = real
+    mesh.shutdown()
+    return dict(backend=backend, rank=rank, world=world, bytes_per_step=sent,
+                launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                nogroup=read_metrics(work / 'nogroup' / 'metrics.jsonl'),
+                group=read_metrics(work / 'nccl' / 'metrics.jsonl'))
+
+
+def worker_full(work):
+    """19b: DP_STEPS full-width Far3D steps on this rank's lane of a batch
+    of two, from rank 0's weights; per step the ms, the time spent in
+    all-reduces (each synchronized on both sides), the losses and a digest
+    of the parameters and buffers."""
+    rank, world = mesh.rank_and_world()
+    cfg = Far3DConfig()
+    model = build_model(cfg, 'cuda', 0)
+    state, tstate = create_train_state(cfg, model, batch=1)
+    mesh.broadcast_module_(model)
+    batch = {k: v.cuda() for k, v in mesh.shard_batch(
+        synthetic_batch(cfg, world, 0), rank, world).items()}
+    noise_gen = torch.Generator()
+    dropout_gen = torch.Generator(device='cuda')
+    comm = [0.0]
+    real = torch.distributed.all_reduce
+
+    def timed(t, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *args, **kw)
+        torch.cuda.synchronize()
+        comm[0] += time.perf_counter() - t0
+        return out
+
+    torch.distributed.all_reduce = timed
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    steps = []
+    for i in range(DP_STEPS):
+        noise_gen.manual_seed(runner.step_seed(0, i))
+        dropout_gen.manual_seed(runner.step_seed(0, i, rank))
+        comm[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, tstate, m = train_step(cfg, state, tstate, batch, noise_gen,
+                                      dropout_gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(ms=ms, comm_ms=comm[0] * 1e3,
+                          losses={k: float(v) for k, v in m.items()},
+                          digest=param_digest(model)))
+    torch.distributed.all_reduce = real
+    return dict(rank=rank, steps=steps,
+                launches={k: _build.launch_counts[k] for k in MSDA_NAMES},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def tiny_inputs(family):
+    """19c's tiny f32 runs without dropout: config, weights, a batch of two
+    and two steps' global draws from one CPU generator."""
+    gen = torch.Generator().manual_seed(0)
+    if family == 'far3d':
+        cfg = no_dropout_f32(tiny_test_config())
+        return dict(cfg=cfg, weights=random_reference_state_dict(cfg, 0),
+                    batch=synthetic_batch(cfg, 2, 6),
+                    noises=[draw_step_noise(cfg, 2, gen) for _ in range(2)])
+    cfg = dataclasses.replace(tiny_petr_config(), dropout=0.0)
+    tcfg = dataclasses.replace(TrainConfig(), lr=2e-3, warmup_iters=1,
+                               dtype='float32', ema_decay=0.0)
+    return dict(cfg=cfg, train_cfg=tcfg,
+                weights=petr_init_state_dict(cfg, 0),
+                batch=petr_synthetic_batch(cfg, 2, 6),
+                noises=[draw_petr_noise(cfg, tcfg, gen) for _ in range(2)])
+
+
+def run_tiny(family, inp, device, rank=0, world=1):
+    """Two steps of `inp` on this rank's lanes -> (metrics, state dict,
+    Adam first moments, parameters before), on the CPU."""
+    cfg = inp['cfg']
+    lanes = inp['batch']['images'].shape[0] // world
+    if family == 'far3d':
+        state, tstate = create_train_state(
+            cfg, build_model(cfg, device, weights=inp['weights']), lanes)
+
+        def step(state, tstate, batch, noise):
+            return step_from_noise(cfg, state, tstate, batch, noise)
+    else:
+        tcfg = inp['train_cfg']
+        state, tstate = create_petr_train_state(
+            build_petr_model(cfg, device, weights=inp['weights']), tcfg,
+            lanes)
+
+        def step(state, tstate, batch, noise):
+            return petr_step_from_noise(cfg, tcfg, state, tstate, batch,
+                                        noise)
+    before = {k: p.detach().cpu().clone()
+              for k, p in state.model.named_parameters()}
+    batch = {k: v.to(device) for k, v in
+             mesh.shard_batch(inp['batch'], rank, world).items()}
+    metrics = []
+    for i, noise in enumerate(inp['noises']):
+        if i:
+            batch['prev_exists'] = torch.ones_like(batch['prev_exists'])
+        state, tstate, m = step(state, tstate, batch,
+                                mesh.shard_batch(noise, rank, world))
+        metrics.append({k: float(v) for k, v in m.items()})
+    moments = {k: state.optimizer.state.get(p, {}).get(
+        'exp_avg', torch.zeros_like(p)).cpu()
+        for k, p in state.model.named_parameters()}
+    return (metrics, {k: v.cpu() for k, v in state.model.state_dict().items()},
+            moments, before)
+
+
+def worker_tiny(work, family):
+    rank, world = mesh.rank_and_world()
+    inp = torch.load(work / f'tiny_{family}.pt', weights_only=False)
+    torch.save(run_tiny(family, inp, 'cuda', rank, world),
+               work / f'tiny_{family}_{rank}.pt')
+    return dict(rank=rank)
+
+
+def worker_cli_test(work, argv):
+    """19d: one rank of cli.test on this card; the rank joins its group
+    over gloo first (FAR3D_*), which cli.test then keeps, since NCCL
+    refuses two ranks on one card."""
+    mesh.init_distributed(backend='gloo')
+    res = cli_test.evaluate(argv)
+    rank = mesh.rank_and_world()[0]
+    mesh.shutdown()
+    return dict(rank=rank, frames=res['frames'], means=res['means'])
+
+
+def rank_worker(mode, work, *args):
+    """A phase-19 process (see spawn_ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(work)
+    if mode == 'nccl1':
+        out = worker_nccl1(work)
+    elif mode == 'cli_test':
+        out = worker_cli_test(work, list(args))
+    else:
+        mesh.init_distributed(backend='gloo')
+        try:
+            out = worker_full(work) if mode == 'full' else \
+                worker_tiny(work, *args)
+        finally:
+            mesh.shutdown()
+    print('RESULT ' + json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_ranks(mode, work, envs, args=()):
+    """One process of this script's --rank-worker `mode` per entry of `envs`
+    (its extra environment), each logging to `work`/<mode>_<r>.log; a rank
+    that fails, or RANK_TIMEOUT_S, kills the others. Returns each rank's
+    RESULT object."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                         'MASTER_PORT', 'FAR3D_COORDINATOR')}
+    logs = [work / f'{mode}_{r}.log' for r in range(len(envs))]
+    procs = []
+    for log_path, env in zip(logs, envs):
+        with open(log_path, 'w') as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 '--rank-worker', mode, str(work), *args],
+                env={**base, **env}, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for r, (p, log_path) in enumerate(zip(procs, logs)):
+        text = log_path.read_text()
+        lines = [ln for ln in text.splitlines() if ln.startswith('RESULT ')]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f'{mode} rank {r} exited {p.returncode}:\n'
+                                 f'{text[-6000:]}')
+        results.append(json.loads(lines[-1][len('RESULT '):]))
+    return results
+
+
+def gloo_envs(store, world=2):
+    """`world` ranks meeting at the file store `store` (a new path)."""
+    return [dict(FAR3D_COORDINATOR=f'file://{store}',
+                 FAR3D_NUM_PROCESSES=str(world), FAR3D_PROCESS_ID=str(r))
+            for r in range(world)]
+
+
+def dp_nccl_world1(work, card, ms_step9):
+    """19a."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    res, = spawn_ranks('nccl1', work, [dict(
+        RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+        MASTER_PORT=str(port))])
+    wall = time.perf_counter() - t0
+    if res['backend'] != 'nccl' or res['world'] != 1:
+        raise AssertionError(f'19a: {res["backend"]}, world {res["world"]}')
+    want = {k: LAYERS_PER_FRAME * NCCL_STEPS for k in MSDA_NAMES}
+    if res['launches'] != want:
+        raise AssertionError(f'19a: launches {res["launches"]}, want {want}')
+    keys = [k for k in res['group'][0] if k not in ('iter', 'time',
+                                                    'data_time')]
+    equal, diffs = [], []
+    for s, (a, b) in enumerate(zip(res['nogroup'], res['group'])):
+        bad = [k for k in keys if not np.isfinite(b[k])]
+        if bad:
+            raise AssertionError(f'19a step {s}: non-finite {bad}')
+        diff = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for k in keys)
+        equal.append(all(a[k] == b[k] for k in keys))
+        diffs.append(diff)
+        log(f'  step {s}: total_loss {b["total_loss"]:.6f} (without a group '
+            f'{a["total_loss"]:.6f}), grad_norm {b["grad_norm"]:.4f}; all '
+            f'{len(keys)} metrics bitwise equal to the run without a group: '
+            f'{equal[-1]} (largest relative difference {diff:.3e}); '
+            f'{b["time"] * 1e3:.1f} ms/step [{card}]')
+    if not equal[0]:
+        raise AssertionError('19a: the first step (the same weights and '
+                             'inputs) differs from the run without a group')
+    if max(diffs) > 1e-3:
+        raise AssertionError(f'19a: metrics apart by {max(diffs):.3e}')
+    ms = [m['time'] * 1e3 for m in res['group']]
+    log(f'  backend {res["backend"]}, world size {res["world"]}; gradients '
+        f'all-reduced a step: {res["bytes_per_step"][0] / 2**20:.1f} MiB '
+        f'(f32, {len(res["bytes_per_step"])} steps); launches {res["launches"]}'
+        f'; ms/step {ms[-1]:.1f} (step {NCCL_STEPS - 1} of run_training; '
+        f'step 1 carries the first save) beside phase 9\'s {ms_step9:.2f}; '
+        f'peak '
+        f'{res["peak_gib"]:.2f} GiB; {wall:.1f} s with the process start '
+        f'[{card}]')
+    return dict(launches=res['launches'], ms_step=ms[-1],
+                bytes_per_step=res['bytes_per_step'][0],
+                bitwise_steps=equal, max_rel_diff=diffs)
+
+
+def dp_gloo_full(work, card):
+    """19b."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks('full', work, gloo_envs(work / 'store_full'))
+    wall = time.perf_counter() - t0
+    for s in range(DP_STEPS):
+        a, b = (r['steps'][s] for r in ranks)
+        if a['digest'] != b['digest']:
+            raise AssertionError(f'19b step {s}: the ranks\' parameters '
+                                 'differ')
+        for r, st in enumerate((a, b)):
+            bad = [k for k, v in st['losses'].items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f'19b step {s} rank {r}: non-finite '
+                                     f'{bad}')
+        if a['losses'] != b['losses']:
+            raise AssertionError(f'19b step {s}: the ranks log other means')
+        log(f'  step {s}: parameters and buffers bitwise equal on both ranks '
+            f'(sha256 {a["digest"][:16]}), total_loss '
+            f'{a["losses"]["total_loss"]:.4f} (mean of the ranks), grad_norm '
+            f'{a["losses"]["grad_norm"]:.3f}')
+    want = {k: LAYERS_PER_FRAME * DP_STEPS for k in MSDA_NAMES}
+    out = []
+    for r, res in enumerate(ranks):
+        if res['launches'] != want:
+            raise AssertionError(f'19b rank {r}: launches {res["launches"]}, '
+                                 f'want {want}')
+        ms = [st['ms'] for st in res['steps']]
+        comm = [st['comm_ms'] for st in res['steps']]
+        log(f'  rank {r} (two ranks sharing one card, not a scaling number): '
+            f'ms/step {", ".join(f"{v:.1f}" for v in ms)}; all-reduces '
+            f'{", ".join(f"{v:.1f}" for v in comm)} ms of them '
+            f'({100 * comm[-1] / ms[-1]:.1f}% of the last step, each '
+            f'all-reduce synchronized on both sides); peak '
+            f'{res["peak_gib"]:.2f} GiB; launches {res["launches"]} [{card}]')
+        out.append(dict(ms_steps=ms, comm_ms=comm, peak_gib=res['peak_gib'],
+                        launches=res['launches']))
+    log(f'  {wall:.1f} s with the process starts')
+    return out
+
+
+def dp_tiny(work, card):
+    """19c."""
+    out = {}
+    for family, floor in (('far3d', 1e-12), ('petr', 1e-8)):
+        inp = tiny_inputs(family)
+        torch.save(inp, work / f'tiny_{family}.pt')
+        spawn_ranks('tiny', work, gloo_envs(work / f'store_tiny_{family}'),
+                    args=(family,))
+        ranks = [torch.load(work / f'tiny_{family}_{r}.pt',
+                            weights_only=False) for r in range(2)]
+        for k, v in ranks[0][1].items():
+            if not torch.equal(v, ranks[1][1][k]):
+                raise AssertionError(f'19c {family}: {k} differs by rank')
+        single = run_tiny(family, inp, 'cuda')
+        moved, n = hold_run(ranks[0], single, floor)
+        m = ranks[0][0]
+        log(f'  tiny {family}, two gloo ranks at batch 1 against one process '
+            f'at batch 2, on the card: {len(m[0])} metrics x 2 steps (tol '
+            f'{TINY_TOL}), Adam first moments of {n[0]} parameters ({moved} '
+            f'with a gradient), {n[1]} parameters and buffers (BN statistics '
+            f'among them) agree; the ranks bitwise equal; total_loss '
+            f'{m[0]["total_loss"]:.4f} -> {m[1]["total_loss"]:.4f} [{card}]')
+        out[family] = dict(moved=moved, compared=n)
+    return out
+
+
+def dp_cli_test(work, data_dir, card):
+    """19d."""
+    base = ['--data-root', str(data_dir), '--ann-file',
+            str(data_dir / 'infos.pkl'), '--checkpoint',
+            str(data_dir / 'work')]
+    two, one = work / 'results_two', work / 'results_one'
+    t0 = time.perf_counter()
+    ranks = spawn_ranks('cli_test', work, gloo_envs(work / 'store_test'),
+                        args=base + ['--results-dir', str(two)])
+    wall2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = cli_test.evaluate(base + ['--results-dir', str(one)])
+    wall1 = time.perf_counter() - t0
+    parts = []
+    for r in range(2):
+        with open(two / f'part_{r}.pkl', 'rb') as f:
+            parts.extend(pickle.load(f))
+    with open(one / 'part_0.pkl', 'rb') as f:
+        ref = pickle.load(f)
+    order, want = [p['index'] for p in parts], [p['index'] for p in ref]
+    if order != want:
+        raise AssertionError(f'19d: parts in order {order}, one process '
+                             f'{want}')
+    got = ranks[0]['means']
+    if got['mAP'] != single['means']['mAP'] or \
+            got['CDS'] != single['means']['CDS']:
+        raise AssertionError(f'19d: two ranks {got}, one {single["means"]}')
+    counts = [(len(a['scores']), len(b['scores'])) for a, b in zip(parts, ref)]
+    if any(x != y for x, y in counts):
+        raise AssertionError(f'19d: detections a frame {counts}')
+    det = max((float(np.abs(a[k] - b[k]).max()) if len(a[k]) else 0.0)
+              for a, b in zip(parts, ref) for k in ('scores', 'boxes'))
+    log(f'  cli.test on two gloo ranks of this card: rank 0 scored '
+        f'{ranks[0]["frames"]} frames (every rank\'s), rank 1 streamed '
+        f'{ranks[1]["frames"]}; the parts in rank order hold '
+        f'frames {order}, as one process; mAP {got["mAP"]:.6f}, CDS '
+        f'{got["CDS"]:.6f}, equal to one process\'s; largest difference of a '
+        f'score or box coordinate {det:.3e}; {wall2:.1f} s (two processes) '
+        f'against {wall1:.1f} s (in this one) [{card}]')
+    return dict(order=order, mAP=got['mAP'], CDS=got['CDS'], det_diff=det)
+
+
+def pair_one_to_one(costs, forbid=None):
+    """The one-to-one pairing of two sets of n entries that least sums the
+    pairs' costs, a pair's cost the largest of `costs` (n x n matrices of
+    distances, each in units of its tolerance); the pairs that `forbid`
+    marks cost 1e9. Returns, for each entry of the first set, the index of
+    its partner in the second."""
+    cost = torch.stack(costs).amax(0)
+    if forbid is not None:
+        cost = cost.masked_fill(forbid, 1e9)
+    rows, cols = linear_sum_assignment(cost.double().cpu().numpy())
+    assert (rows == np.arange(len(rows))).all()
+    return torch.as_tensor(cols, device=cost.device)
+
+
+def repeats(x):
+    """How many rows of `x` repeat an earlier row exactly."""
+    return len(x) - len(torch.unique(x, dim=0))
+
+
+def match_frames(ds, du, ss, su):
+    """Two decodes and states of one frame, compared where their order may
+    differ (queries and memory slots of equal or nearly equal score come out
+    of a top-K in either order, and a memory slot's order is its propagated
+    query's): the scores in rank order; the detections paired one to one
+    (``pair_one_to_one``: box and score, a box only with one of its class)
+    and the memory slots likewise (reference point and embedding), each
+    with its largest difference over the pairs and the largest entry it is
+    relative to. Also counts what reorders a top-K: detection scores and
+    memory slots that repeat another exactly, scores within the frames'
+    own score difference of the next, and the entries paired off their
+    own position."""
+    inf = float('inf')
+
+    def tol(key, ref):
+        rtol, atol = CAM_TOL[key]
+        return atol + rtol * float(ref.abs().max())
+
+    a_s, b_s = ds['scores'][0], du['scores'][0]
+    a_l, b_l = ds['labels'][0], du['labels'][0]
+    a_b, b_b = ds['boxes'][0], du['boxes'][0]
+    if a_b.shape != b_b.shape or not torch.equal(
+            torch.sort(a_l).values, torch.sort(b_l).values):
+        raise AssertionError(f'19e: detections of other counts by class: '
+                             f'{a_l.bincount().tolist()} against '
+                             f'{b_l.bincount().tolist()}')
+    ranked = float((torch.sort(a_s, descending=True).values
+                    - torch.sort(b_s, descending=True).values).abs().max())
+    det = pair_one_to_one(
+        [torch.cdist(a_b, b_b, p=inf) / tol('boxes', b_b),
+         (a_s[:, None] - b_s[None]).abs() / tol('scores', b_s)],
+        forbid=a_l[:, None] != b_l[None])
+    if not torch.equal(a_l, b_l[det]):
+        raise AssertionError('19e: a detection paired with one of another '
+                             'class')
+    gaps = torch.sort(b_s).values.diff()
+    out = dict(scores=max(ranked, float((a_s - b_s[det]).abs().max())),
+               scores_max=float(b_s.abs().max()), scores_ranked=ranked,
+               boxes=float((a_b - b_b[det]).abs().max()),
+               boxes_max=float(b_b.abs().max()),
+               tied_scores=repeats(b_s[:, None]),
+               near_tied_scores=int((gaps <= ranked).sum()),
+               detections=len(b_s), detections_moved=int(
+                   (det != torch.arange(len(det), device=det.device)).sum()))
+    a_r, b_r = ss.ref_points[0], su.ref_points[0]
+    a_e, b_e = ss.embedding[0], su.embedding[0]
+    slot = pair_one_to_one(
+        [torch.cdist(a_r, b_r, p=inf) / tol('ref_points', b_r),
+         torch.cdist(a_e, b_e, p=inf) / tol('embedding', b_e)])
+    out.update(ref_points=float((a_r - b_r[slot]).abs().max()),
+               ref_points_max=float(b_r.abs().max()),
+               embedding=float((a_e - b_e[slot]).abs().max()),
+               embedding_max=float(b_e.abs().max()),
+               tied_slots=repeats(torch.cat([b_r, b_e], 1)),
+               slots=len(b_r), slots_moved=int(
+                   (slot != torch.arange(len(slot), device=slot.device))
+                   .sum()))
+    return out
+
+
+def cam_shard_phase(cfg, dev, card, ms_frame4):
+    """19e: the frame through seven one-camera slices on this card against
+    the unsharded model. First two streamed frames with f32 images (the
+    second with the carried state), compared by match_frames at CAM_TOL;
+    the per-slice towers run at batch 1 instead of 7, so cuDNN may sum in
+    another order. Then CAM_FRAMES frames each way
+    with bf16 images, the served dtype, timed; the FPN output of the first
+    held against the unsharded pass (CAM_FPN_TOL). With bf16 towers the
+    decoded detections are not compared: a rounding step in a proposal
+    score reorders the 2D top-K, and the queries then differ."""
+    model = build_model(cfg, dev, 0)
+    inputs = {k: torch.from_numpy(v).to(dev)
+              for k, v in inference_inputs(cfg, batch=1, seed=0).items()}
+    run = make_cam_sharded_infer(model, cfg, [dev] * cfg.data.num_cams)
+
+    def frame_inputs(i, dtype):
+        return dict(inputs, images=inputs['images'].to(dtype),
+                    prev_exists=torch.full((1,), float(i > 0), device=dev),
+                    timestamp=torch.full((1,), 0.1 * i, device=dev))
+
+    sharded = unsharded = init_state(1, cfg.head, dev)
+    diffs = []
+    for i in range(2):
+        kw = frame_inputs(i, torch.float32)
+        ds, sharded = run(sharded, kw)
+        du, unsharded = run_frame(model, unsharded, **kw)
+        d = match_frames(ds, du, sharded, unsharded)
+        diffs.append(d)
+        log(f'  f32 frame {i}: sharded against unsharded, paired one to '
+            f'one: scores apart by <= {d["scores"]:.3e} (in rank order and '
+            f'paired), boxes by <= {d["boxes"]:.3e}, memory slots by <= '
+            f'{d["ref_points"]:.3e} (reference point) and '
+            f'{d["embedding"]:.3e} (embedding) (tol {CAM_TOL}); '
+            f'{d["detections_moved"]} of {d["detections"]} detections and '
+            f'{d["slots_moved"]} of {d["slots"]} slots paired off their '
+            f'position; {d["tied_scores"]} scores and {d["tied_slots"]} '
+            f'slots repeat another exactly, {d["near_tied_scores"]} scores '
+            f'lie within {d["scores_ranked"]:.3e} of the next')
+        bad = [k for k, (rtol, atol) in CAM_TOL.items()
+               if not d[k] <= atol + rtol * d[f'{k}_max']]
+        if bad:
+            raise AssertionError(f'19e f32 frame {i}: {bad} {d}')
+
+    captured = []
+    hook = model.img_neck.register_forward_hook(
+        lambda m, args, out: captured.append([f.float() for f in out]))
+    sharded = unsharded = init_state(1, cfg.head, dev)
+    ms_s, ms_u, launches = [], [], 0
+    for i in range(CAM_FRAMES):
+        kw = frame_inputs(i, torch.bfloat16)
+        torch.cuda.synchronize()
+        n0 = _build.launch_counts[msda_cuda.FWD]
+        t0 = time.perf_counter()
+        ds, sharded = run(sharded, kw)
+        torch.cuda.synchronize()
+        ms_s.append((time.perf_counter() - t0) * 1e3)
+        launches += _build.launch_counts[msda_cuda.FWD] - n0
+        t0 = time.perf_counter()
+        du, unsharded = run_frame(model, unsharded, **kw)
+        torch.cuda.synchronize()
+        ms_u.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.isfinite(ds[k]).all() for k in ('scores', 'boxes')):
+            raise AssertionError(f'19e bf16 frame {i}: non-finite detections')
+        if i == 0:
+            hook.remove()
+            *slices, whole = captured
+            if len(slices) != cfg.data.num_cams:
+                raise AssertionError(f'19e: {len(slices)} tower passes')
+            fpn = max(float((torch.cat([sl[lvl] for sl in slices])
+                             - whole[lvl]).abs().max()
+                            / whole[lvl].abs().max())
+                      for lvl in range(len(whole)))
+            del captured, slices, whole
+            log(f'  bf16 frame 0: the FPN output of the seven slices apart '
+                f'from the unsharded pass by <= {fpn:.3e} of its largest '
+                f'entry (tol {CAM_FPN_TOL})')
+            if not fpn <= CAM_FPN_TOL:
+                raise AssertionError(f'19e: FPN apart by {fpn:.3e}')
+    if launches != LAYERS_PER_FRAME * CAM_FRAMES:
+        raise AssertionError(f'19e: msda_fwd launched {launches} times')
+    sm, um = statistics.median(ms_s[2:]), statistics.median(ms_u[2:])
+    log(f'  {cfg.data.num_cams} slices of one camera on this one card, bf16: '
+        f'{sm:.2f} ms/frame sharded, {um:.2f} unsharded (medians of frames '
+        f'2..{CAM_FRAMES - 1}), phase 4: {ms_frame4:.2f}; one card: no '
+        f'latency gain measurable; msda_fwd launched {launches} times '
+        f'({LAYERS_PER_FRAME} a sharded frame) [{card}]')
+    return dict(ms_sharded=sm, ms_unsharded=um, launches=launches,
+                f32_diffs=diffs, bf16_fpn_diff=fpn)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2208,18 +2838,20 @@ def main():
     log('== phase 16: the dataset path: disk -> TrainLoader -> run_training '
         '-> checkpoint, restore, resume -> EvalLoader -> run_inference -> AV2 '
         'metrics')
-    with tempfile.TemporaryDirectory(prefix='far3d_data_') as tmp:
-        data = dataset_path(cfg, dev, card, Path(tmp))
-        torch.cuda.empty_cache()
+    # phase 16's dataset and checkpoint serve phases 17 and 19d
+    data_tmp = tempfile.TemporaryDirectory(prefix='far3d_data_')
+    data_dir = Path(data_tmp.name)
+    data = dataset_path(cfg, dev, card, data_dir)
+    torch.cuda.empty_cache()
 
-        log('== phase 17: the int8 serving path: qconv and ese_requant at '
-            'small and awkward shapes, Far3DConfig() through quant_backbone, '
-            'every conv site and block tail, times, and phase 16\'s eval '
-            'through cli.test --quant --map-root --submission')
-        qconv_small_shapes(dev)
-        serve = serving_path(cfg, dev, card)
-        torch.cuda.empty_cache()
-        serve_cli = serving_cli(Path(tmp), card)
+    log('== phase 17: the int8 serving path: qconv and ese_requant at '
+        'small and awkward shapes, Far3DConfig() through quant_backbone, '
+        'every conv site and block tail, times, and phase 16\'s eval '
+        'through cli.test --quant --map-root --submission')
+    qconv_small_shapes(dev)
+    serve = serving_path(cfg, dev, card)
+    torch.cuda.empty_cache()
+    serve_cli = serving_cli(data_dir, card)
     torch.cuda.empty_cache()
 
     log('== phase 18: StreamPETR at full width: 6 cameras of 320x800, bf16 '
@@ -2238,6 +2870,33 @@ def main():
     with tempfile.TemporaryDirectory(prefix='far3d_nusc_') as tmp:
         petr_data = petr_dataset_path(Path(tmp), card)
     torch.cuda.empty_cache()
+
+    log('== phase 19: data parallelism over torch.distributed and camera '
+        'sharding (far3d_tpu_torch/parallel/)')
+    with tempfile.TemporaryDirectory(prefix='far3d_dp_') as work:
+        work = Path(work)
+        log('== phase 19a: NCCL at world size 1: run_training at full width')
+        dp_a = dp_nccl_world1(work, card, ms_step)
+        log('== phase 19b: two gloo ranks on this card, full width, 3 steps')
+        dp_b = dp_gloo_full(work, card)
+        log('== phase 19c: tiny DP against one process at batch 2, on the '
+            'card')
+        dp_c = dp_tiny(work, card)
+        log('== phase 19d: cli.test on two ranks against one, phase 16\'s '
+            'dataset')
+        dp_d = dp_cli_test(work, data_dir, card)
+    data_tmp.cleanup()
+    log('== phase 19e: camera-sharded inference, 7 slices on this card')
+    cam = cam_shard_phase(cfg, dev, card, ms_frame)
+    torch.cuda.empty_cache()
+    dp_launches = {
+        name: {'19a_nccl_world1': dp_a['launches'][name],
+               '19b_rank0': dp_b[0]['launches'][name],
+               '19b_rank1': dp_b[1]['launches'][name],
+               **({'19e_cam_shard': cam['launches']}
+                  if name == msda_cuda.FWD else {})}
+        for name in MSDA_NAMES}
+
     petr_common = {'streampetr_ms_per_frame_bf16': petr['bf16_frame_ms'],
                    'streampetr_ms_per_frame_int8': petr['int8_frame_ms'],
                    'streampetr_ms_per_step': petr_train['ms_step'],
@@ -2258,6 +2917,7 @@ def main():
     bwd_lib = 'backward of F.grid_sample per level + einsum (composite, f32)'
     kernels = {'kernels': [{
         'name': 'msda_fwd', **common, **petr_launches('msda_fwd'),
+        'dp_launches': dp_launches[msda_cuda.FWD],
         'source': 'far3d_tpu_torch/csrc/msda_fwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
@@ -2275,6 +2935,7 @@ def main():
         'library': 'F.grid_sample per level + einsum (composite, f32)',
     }, {
         'name': 'msda_dval', **common, **petr_launches('msda_dval'),
+        'dp_launches': dp_launches[msda_cuda.DVAL],
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:260',
         'launches': train_launches['msda_dval'],
@@ -2290,6 +2951,7 @@ def main():
         'library_ms': times['library_ms'], 'library': bwd_lib,
     }, {
         'name': 'msda_dattn', **common, **petr_launches('msda_dattn'),
+        'dp_launches': dp_launches[msda_cuda.DATTN],
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:348',
         'launches': train_launches['msda_dattn'],
@@ -2411,6 +3073,10 @@ def main():
         'int8_backbone_ese_requant_ms': petr['int8_tail_ms'],
         'off_tma_sites': petr['off_tma'], 'train': petr_train,
         'dataset_cli': petr_data}))
+    log('Parallel (phase 19): ' + json.dumps({
+        'nccl_world1': dp_a, 'gloo_two_ranks_one_card': dp_b,
+        'tiny_dp_vs_one': dp_c, 'cli_test_two_ranks': dp_d,
+        'cam_shard': cam}))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
@@ -2419,4 +3085,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if len(sys.argv) > 2 and sys.argv[1] == '--rank-worker':
+        sys.exit(rank_worker(*sys.argv[2:]))
     sys.exit(main())

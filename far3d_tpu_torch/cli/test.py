@@ -1,5 +1,5 @@
 """Streaming evaluation CLI of the port (the twin of ``tools/test.py``;
-reference tools/test.py + dist_test.sh), one process on one card:
+reference tools/test.py + dist_test.sh), one process a card:
 
     python -m far3d_tpu_torch.cli.test --data-root data/av2 \\
         --checkpoint work_dirs/far3d [--torch-checkpoint iter_82548.pth] \\
@@ -13,7 +13,11 @@ metric with the HD map's drivable-area ROI (``eval/map_roi.py``),
 --submission writes the AV2 Feather submission, and --quant serves with the
 int8 backbone (``ops/quant.py``), calibrated on the first
 --quant-calib-frames frames. Prints the AV2 metrics (mAP, CDS and the
-true-positive errors) per class. Not ported: several processes.
+true-positive errors) per class. Under torchrun, Slurm or
+``cli/dist_test.sh`` (``parallel/mesh.py:init_distributed``) each rank
+streams its contiguous shard of the val set and writes its part file; rank
+0 concatenates the parts in rank order, scores them and writes the
+submission of every rank's frames.
 """
 
 from __future__ import annotations
@@ -67,12 +71,14 @@ def evaluate(argv=None):
     from ..data.av2_dataset import AV2SequenceDataset
     from ..data.loader import EvalLoader
     from ..entry import build_model, resolve_device
-    from ..eval.runner import (collect_and_evaluate, format_av2_submission,
-                               run_inference)
+    from ..eval.runner import (collect_parts, evaluate_parts,
+                               format_av2_submission, run_inference)
+    from ..parallel import mesh
     from ..train.step import create_train_state
     from ..utils.checkpoint import CheckpointManager
     from ..utils.convert import load_reference_checkpoint
 
+    rank, world = mesh.init_distributed(args.device)
     device = resolve_device(args.device)
     cfg = tiny_test_config() if args.tiny else Far3DConfig()
     cfg = apply_overrides(cfg, args.overrides)
@@ -114,12 +120,20 @@ def evaluate(argv=None):
         quant_tree = quantize_detector_backbone(model, calib)
         print(f'int8 PTQ backbone: calibrated on {len(calib)} frames')
 
-    loader = EvalLoader(dataset, cfg, device=device)
+    loader = EvalLoader(dataset, cfg, rank=rank, world_size=world,
+                        device=device)
     results = run_inference(cfg, model, loader, device=device,
                             quant_tree=quant_tree)
-    summary, means = collect_and_evaluate(
-        cfg, dataset, args.results_dir, 0, 1, results,
-        eval_range_m=args.eval_range_m, roi_masks=roi_masks)
+    parts = collect_parts(args.results_dir, rank, world, results)
+    if parts is None:        # a rank other than 0: its part is written
+        return dict(means=None, summary=None, frames=len(results),
+                    submission_rows=None)
+    # every rank's frames (the JAX tool scores them, and writes rank 0's
+    # alone to the submission)
+    results = parts
+    summary, means = evaluate_parts(cfg, dataset, results,
+                                    eval_range_m=args.eval_range_m,
+                                    roi_masks=roi_masks)
     rows = None
     if args.submission:
         from ..config import AV2_CLASS_NAMES
@@ -132,7 +146,11 @@ def evaluate(argv=None):
 
 
 def main(argv=None):
-    evaluate(argv)
+    from ..parallel import mesh
+    try:
+        evaluate(argv)
+    finally:
+        mesh.shutdown()
     return 0
 
 

@@ -1,9 +1,10 @@
 """StreamPETR nuScenes training CLI of the port (the twin of
-``tools/train_nusc.py``), one process on one card:
+``tools/train_nusc.py``), one process a card:
 
     python -m far3d_tpu_torch.cli.train_nusc --data-root data/nuscenes \\
         [--ann-file nuscenes2d_temporal_infos_train.pkl] \\
         [--work-dir work_dirs/streampetr] [--max-iters N]
+    torchrun --nproc_per_node 8 -m far3d_tpu_torch.cli.train_nusc ...
 
 Reads ``nuscenes2d_temporal_infos_train.pkl`` from --data-root (or
 --ann-file) through ``NuScenesSequenceDataset`` and the shared host pipeline
@@ -11,7 +12,10 @@ Reads ``nuscenes2d_temporal_infos_train.pkl`` from --data-root (or
 installed) and trains through ``train/runner.py``'s loop: a log line every
 --log-interval steps, a checkpoint of the whole train state every
 --ckpt-interval steps and at the last, a resume from the latest one in
---work-dir unless --no-resume. Not ported: several processes or cards.
+--work-dir unless --no-resume. Under torchrun, Slurm or the ``FAR3D_*``
+variables (``parallel/mesh.py:init_distributed``) the processes train
+data-parallel, each with --batch-size lanes of the global batch, as
+``cli.train`` does.
 """
 
 from __future__ import annotations
@@ -52,10 +56,12 @@ def main(argv=None):
     from ..entry import resolve_device
     from ..eval.petr_runner import petr_host_config
     from ..models.streampetr import StreamPETRConfig, tiny_petr_config
+    from ..parallel import mesh
     from ..train.runner import run_petr_training
 
+    rank, world = mesh.init_distributed(args.device)
     device = resolve_device(args.device)
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format='%(asctime)s %(levelname)s %(message)s')
     cfg = tiny_petr_config() if args.tiny else StreamPETRConfig()
     cfg = apply_overrides(cfg, args.overrides)
@@ -69,7 +75,8 @@ def main(argv=None):
         f'{args.data_root}/nuscenes2d_temporal_infos_train.pkl'
     dataset = NuScenesSequenceDataset(ann, args.data_root, seq_split_num=2)
     loader = TrainLoader(dataset, petr_host_config(cfg, tuple(args.src_wh)),
-                         args.batch_size, seed=args.seed, device=device)
+                         args.batch_size, rank=rank, world_size=world,
+                         seed=args.seed, device=device)
     Path(args.work_dir).mkdir(parents=True, exist_ok=True)
     try:
         run_petr_training(cfg, tcfg, loader, args.work_dir, args.batch_size,
@@ -77,6 +84,7 @@ def main(argv=None):
                           device=device)
     finally:
         loader.stop()
+        mesh.shutdown()
     return 0
 
 

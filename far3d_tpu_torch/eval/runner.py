@@ -24,6 +24,7 @@ from ..data.loader import BATCH_KEYS
 from ..entry import resolve_device
 from ..models.detector import Far3D
 from ..models.farhead import init_state
+from ..parallel import mesh
 from ..train.step import make_infer_step
 from .av2_metrics import DetectionConfig, evaluate_detections, format_summary
 
@@ -101,13 +102,30 @@ def collect_and_evaluate(cfg: Far3DConfig, dataset, results_dir: str,
                          roi_masks=None):
     """Write per-rank shard files; rank 0 concatenates them in rank order
     (core/apis/test.py:116-160) and evaluates -> (summary, means), None on
-    the other ranks."""
+    the other ranks: ``collect_parts`` then ``evaluate_parts``."""
+    parts = collect_parts(results_dir, rank, world_size, results)
+    if parts is None:
+        return None
+    return evaluate_parts(cfg, dataset, parts, eval_range_m, roi_masks)
+
+
+def collect_parts(results_dir: str, rank: int, world_size: int,
+                  results: List[Dict]) -> Optional[List[Dict]]:
+    """Write this rank's `results` as ``part_<rank>.pkl``; on rank 0 return
+    every rank's, concatenated in rank order (the whole evaluation, frame by
+    frame in dataset order), None on the others. A part is written to a
+    temporary name and renamed, so a part file is always whole; with a
+    process group (``parallel/mesh.py``) a barrier tells rank 0 that every
+    part is there, without one rank 0 waits up to 600 s for each file on
+    the shared file system."""
     os.makedirs(results_dir, exist_ok=True)
-    with open(f'{results_dir}/part_{rank}.pkl', 'wb') as f:
+    tmp = f'{results_dir}/.part_{rank}.pkl.tmp'
+    with open(tmp, 'wb') as f:
         pickle.dump(results, f)
+    os.replace(tmp, f'{results_dir}/part_{rank}.pkl')
+    mesh.barrier()
     if rank != 0:
         return None
-    # wait for all parts (simple shared-file-system sync)
     parts = []
     for r in range(world_size):
         path = f'{results_dir}/part_{r}.pkl'
@@ -117,7 +135,14 @@ def collect_and_evaluate(cfg: Far3DConfig, dataset, results_dir: str,
             time.sleep(1)
         with open(path, 'rb') as f:
             parts.extend(pickle.load(f))
+    return parts
 
+
+def evaluate_parts(cfg: Far3DConfig, dataset, parts: List[Dict],
+                   eval_range_m: Optional[float] = None,
+                   roi_masks=None):
+    """The AV2 metrics of the collected `parts` against `dataset`'s GT of
+    the frames they hold -> (summary, means); prints the summary."""
     # GT only for the frames actually evaluated: a capped run would
     # otherwise count every frame's GTs in the recall denominator
     evaluated = {p['index'] for p in parts}

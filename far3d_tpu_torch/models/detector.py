@@ -68,27 +68,23 @@ class Far3D(nn.Module):
         back as ``outs2d`` for the 2D loss. `quant_backbone`, a tree of
         ``ops/quant.py`` (``quantize_detector_backbone``), replaces the bf16
         backbone with the int8 one: the serving mode."""
-        cfg = self.cfg
-        b, n, h, w, _ = images.shape
-        if not images.is_floating_point():
-            # uint8 transport (detector.py:55-61): normalized on the device,
-            # then bf16, as the JAX package casts
-            mean = torch.tensor(cfg.data.img_mean, device=images.device)
-            std = torch.tensor(cfg.data.img_std, device=images.device)
-            images = ((images.float() - mean) / std).to(torch.bfloat16)
-        x = images.reshape(b * n, h, w, 3)
-        if quant_backbone is not None:
-            # int8 serving path: NHWC int8 from the normalized images
-            from ..ops.quant import quant_vovnet_forward, quantize_input
-            stages = quant_vovnet_forward(
-                cfg.backbone, quant_backbone,
-                quantize_input(x, quant_backbone['s0']))
-        else:
-            # NHWC -> NCHW shape; on the card this is channels_last in memory
-            stages = self.img_backbone(x.permute(0, 3, 1, 2))
-        feats = self.img_neck(stages)                    # 4 x (BN, C, Hl, Wl)
+        b, n = images.shape[:2]
+        feats, outs2d = camera_towers(self, normalize_images(images, self.cfg),
+                                      train, quant_backbone)
+        return self.forward_head(
+            feats, outs2d, b, n, lidar2img, intrinsics, extrinsics, state,
+            prev_exists, timestamp, ego_pose, ego_pose_inv, gt_depth_bins,
+            dn_ref_points, dn_valid, use_gt_depth, train, generator)
 
-        outs2d = self.img_roi_head(feats, train)
+    def forward_head(self, feats, outs2d, b, n, lidar2img, intrinsics,
+                     extrinsics, state, prev_exists, timestamp, ego_pose,
+                     ego_pose_inv, gt_depth_bins=None, dn_ref_points=None,
+                     dn_valid=None, use_gt_depth=False, train=False,
+                     generator=None) -> Dict[str, Any]:
+        """The cross-camera part of the frame, after ``camera_towers``:
+        the joint top-K proposals, FarHead and its decoder over all cameras.
+        `feats` and `outs2d` hold the b * n images camera-minor."""
+        cfg = self.cfg
         proposals = select_proposals(outs2d, b, n, cfg.strides,
                                      cfg.roi2d.num_proposals_2d,
                                      cfg.roi2d.threshold_score)
@@ -109,6 +105,38 @@ class Far3D(nn.Module):
         head_out['outs2d'] = outs2d
         head_out['proposals'] = proposals
         return head_out
+
+
+def normalize_images(images: torch.Tensor, cfg: Far3DConfig) -> torch.Tensor:
+    """(B, N, H, W, 3) images -> (B * N, H, W, 3) model input: uint8
+    transport (detector.py:55-61) normalized on the device and cast to bf16,
+    as the JAX package casts; float images pass as they are."""
+    b, n, h, w, _ = images.shape
+    if not images.is_floating_point():
+        mean = torch.tensor(cfg.data.img_mean, device=images.device)
+        std = torch.tensor(cfg.data.img_std, device=images.device)
+        images = ((images.float() - mean) / std).to(torch.bfloat16)
+    return images.reshape(b * n, h, w, 3)
+
+
+def camera_towers(towers: nn.Module, x: torch.Tensor, train: bool = False,
+                  quant_backbone: Optional[Dict[str, Any]] = None):
+    """The per-camera part of the frame on (BN, H, W, 3) images: the
+    backbone (bf16, or int8 with `quant_backbone`), the FPN, the YOLOX 2D
+    head and the depth net of `towers` (a ``Far3D``, or a replica holding
+    its ``img_backbone``, ``img_neck`` and ``img_roi_head``). Returns
+    (4 x (BN, C, Hl, Wl) features, the 2D head's maps)."""
+    if quant_backbone is not None:
+        # int8 serving path: NHWC int8 from the normalized images
+        from ..ops.quant import quant_vovnet_forward, quantize_input
+        stages = quant_vovnet_forward(
+            towers.img_backbone.cfg, quant_backbone,
+            quantize_input(x, quant_backbone['s0']))
+    else:
+        # NHWC -> NCHW shape; on the card this is channels_last in memory
+        stages = towers.img_backbone(x.permute(0, 3, 1, 2))
+    feats = towers.img_neck(stages)                      # 4 x (BN, C, Hl, Wl)
+    return feats, towers.img_roi_head(feats, train)
 
 
 def decode_detections(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in the input's dtype."""
@@ -82,7 +84,13 @@ class BatchNorm(FrozenBatchNorm):
     variance, computes in f32 and returns the input's dtype, and updates the
     running statistics in place: new = momentum * old + (1 - momentum) *
     batch, with the biased batch variance (``nn.BatchNorm2d`` uses the
-    unbiased one)."""
+    unbiased one).
+
+    Under data parallelism across two or more ranks (``parallel/mesh.py``)
+    the statistics are the global batch's, as under the JAX package's mesh,
+    whose GSPMD computes them on the global array: the count and the sum of
+    x give the mean, then the sum of (x - mean)^2 the biased variance, each
+    summed over the ranks by a differentiable all-reduce."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.97):
@@ -93,8 +101,11 @@ class BatchNorm(FrozenBatchNorm):
         if not train:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        if mesh.rank_and_world()[1] == 1:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+        else:
+            mean, var = _global_stats(xf)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(
                 (1 - self.momentum) * mean.detach())
@@ -104,6 +115,19 @@ class BatchNorm(FrozenBatchNorm):
         y = (xf - mean.view(shape)) * (torch.rsqrt(var + self.eps)
                                        * self.weight).view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def _global_stats(xf: torch.Tensor):
+    """(mean, biased variance) per channel of the NCHW `xf` over every
+    rank's (N, H, W), in two passes of a differentiable all-reduce."""
+    c = xf.shape[1]
+    s = mesh.all_reduce_sum(torch.cat([
+        xf.sum(dim=(0, 2, 3)), xf.new_full((1,), xf.numel() // c)]))
+    count = s[c:].detach()
+    mean = s[:c] / count
+    sq = mesh.all_reduce_sum(
+        (xf - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3)))
+    return mean, sq / count
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

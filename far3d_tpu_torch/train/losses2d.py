@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..config import Yolox2DConfig
 from ..models.heads2d import decode_boxes, flatten_levels
+from ..parallel import mesh
 from .losses import (bbox_overlaps_xyxy, bce_logits,
                      binary_cross_entropy_with_probs, ddn_depth_loss,
                      iou_loss_square, weighted_l1)
@@ -107,7 +108,8 @@ def yolox_loss(outs2d: Dict, priors: torch.Tensor,
         cls, obj, priors, decoded, gt_boxes2d, gt_labels2d, gt_mask2d, cfg)
     pos = matched_gt >= 0
     posf = pos.float()
-    num_total = posf.sum().clamp(min=1.0)
+    # the global batch's under data parallelism (losses2d.py:100-121)
+    num_total = mesh.normalizer(posf.sum())
 
     safe_gt = matched_gt.clamp(min=0)
     tgt_box = gt_boxes2d.gather(1, safe_gt[..., None].expand(-1, -1, 4))

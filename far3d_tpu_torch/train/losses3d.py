@@ -6,7 +6,10 @@ cost + L1 box cost on the normalized code, hungarian_assigner_3d.py:29-91),
 then a focal class loss and a weighted L1 box loss; with DN queries, the DN
 terms against the DN targets. ``farhead_loss`` builds every layer's cost and
 the DN cost first and matches them all in one host copy
-(``matching.hungarian_match``).
+(``matching.hungarian_match``). Under data parallelism the normalizers (the
+positives, the DN targets) are the global batch's (``parallel.mesh.
+normalizer``), so that the ranks' averaged loss and gradient are the JAX
+step's on the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from ..config import HeadConfig
 from ..geometry import normalize_bbox
+from ..parallel import mesh
 from .dn import assign_targets
 from .losses import sigmoid_focal_loss, weighted_l1
 from .matching import BIG_COST, focal_cls_cost, hungarian_match, l1_bbox_cost
@@ -80,7 +84,7 @@ def match_targets(cls_scores, bbox_preds, query_valid, gt_boxes, gt_labels,
 def layer_loss(cls_scores, bbox_preds, labels, bbox_targets, bbox_mask,
                label_weights, cfg: HeadConfig):
     """farhead.py:984-1050: one decoder layer's focal + L1 loss."""
-    num_pos = bbox_mask.float().sum().clamp(min=1.0)
+    num_pos = mesh.normalizer(bbox_mask.float().sum())
     loss_cls = cfg.loss_cls_weight * sigmoid_focal_loss(
         cls_scores.float(), labels, label_weights, cfg.num_classes,
         cfg.focal_alpha, cfg.focal_gamma) / num_pos
@@ -126,7 +130,7 @@ def farhead_loss(outs: Dict, gt_boxes, gt_labels, gt_mask,
 
     if with_dn:
         dn = assign_targets(dn, rows[-1], cfg)
-        num_tgt = dn['num_tgt'].clamp(min=1.0)
+        num_tgt = mesh.normalizer(dn['num_tgt'])
         norm_t = normalize_bbox(dn['bbox_targets'])
         isfinite = torch.isfinite(norm_t).all(dim=-1)
         cw = torch.tensor(cfg.code_weights, device=norm_t.device)

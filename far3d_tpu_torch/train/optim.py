@@ -29,8 +29,10 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..config import TrainConfig
+from ..parallel import mesh
 
 FROZEN = ('pseudo_reference_points',)
 BACKBONE_PREFIX = 'img_backbone.'
@@ -111,12 +113,20 @@ def clip_and_step(optimizer: torch.optim.AdamW, cfg: TrainConfig,
     learning rates for update number `step` (0-based) and step. Returns the
     unclipped global norm. A parameter that the loss does not reach gets a
     zero gradient, as ``jax.grad`` gives it, so that AdamW still decays it
-    as optax does (StreamPETR leaves the FPN levels it does not read)."""
+    as optax does (StreamPETR leaves the FPN levels it does not read).
+
+    Under data parallelism (``parallel/mesh.py``) the gradients are then
+    averaged over the ranks in flat buckets, the twin of the all-reduce
+    that XLA inserts under the JAX mesh: every rank fills its missing
+    gradients first, so that all hand in one layout, and the norm, the clip
+    and the update are then the same on every rank."""
     params = [p for group in optimizer.param_groups for p in group['params']]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    with record_function('train.grad_all_reduce'):
+        mesh.all_reduce_mean_(grads)
     norm = global_norm(grads)
     scale = torch.where(norm < cfg.grad_clip_norm, torch.ones_like(norm),
                         cfg.grad_clip_norm / norm)

@@ -17,6 +17,12 @@ runner's loop serve both families.
 Randomness: ``draw_petr_noise`` takes the grid-mask draw from a
 ``torch.Generator``; ``petr_step_from_noise`` is deterministic given it and
 the dropout generator on the model's device.
+
+Data parallelism is ``train/step.py``'s: one grid-mask draw a step, the
+same on every rank; the loss normalizers the global batch's
+(``farhead_loss``), the gradients averaged over the ranks
+(``clip_and_step``), the metrics the ranks' mean (the twin of
+``tools/train_nusc.py:49-97`` on the JAX mesh).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..models.detector import decode_boxes
 from ..models.farhead import TemporalState
 from ..models.streampetr import StreamPETR, StreamPETRConfig, init_petr_state
 from ..ops import grid_mask
+from ..parallel import mesh
 from .losses3d import farhead_loss
 from .optim import clip_and_step, ema_update, make_optimizer
 from .step import TrainState
@@ -105,6 +112,7 @@ def petr_step_from_noise(cfg: StreamPETRConfig, train_cfg: TrainConfig,
 
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics['total_loss'] = total.detach()
+    metrics = mesh.mean_over_ranks(metrics)
     metrics['grad_norm'] = grad_norm.detach()
     new_t = out['state']
     new_t = TemporalState(**{f.name: getattr(new_t, f.name).detach()

@@ -14,10 +14,20 @@ The reference's hook stack, realized directly:
 Randomness: each step re-seeds a CPU generator (grid mask, DN) and one on
 the device (dropout) from ``cfg.train.seed`` and the step number, as the JAX
 step folds the step into its key (step.py:98-99), so a resumed run draws
-what an uninterrupted one draws. One process, one device: data parallelism
-across cards is not ported. ``train_loop`` is the loop of both model
+what an uninterrupted one draws. ``train_loop`` is the loop of both model
 families: ``run_training`` drives Far3D through it, ``run_petr_training``
 StreamPETR (``train/petr_step.py``; the GT-depth switch does not apply).
+
+Data parallelism (``parallel/mesh.py``, after ``init_distributed``): every
+rank runs this loop on its loader's lanes (``TrainLoader(rank=,
+world_size=)``). Every rank resumes from the step rank 0 picks, and then
+takes rank 0's whole train state (``utils/checkpoint.py``:
+``broadcast_state_``); the noise generator is seeded alike on
+every rank (the step keeps the rank's lanes of the global draw), the
+dropout generator with the rank folded in, so that lanes on different ranks
+draw different masks. Rank 0 writes ``metrics.jsonl``, the log, the trace
+and the checkpoints (``utils/checkpoint.py``); ``eval_fn`` runs on every
+rank, each streaming its shard.
 """
 
 from __future__ import annotations
@@ -31,16 +41,18 @@ import torch
 
 from ..config import Far3DConfig, TrainConfig
 from ..entry import build_model, resolve_device
-from ..utils.checkpoint import CheckpointManager
+from ..parallel import mesh
+from ..utils.checkpoint import CheckpointManager, broadcast_state_
 from ..utils.convert import init_state_dict, load_reference_checkpoint
 from .step import TrainState, create_train_state, train_step
 
 log = logging.getLogger('far3d_tpu_torch.train')
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generators' seed for step number `step` of a run seeded `seed`."""
-    return (seed + 1) << 32 | step
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The generators' seed for step number `step` of a run seeded `seed`;
+    `rank` (the dropout generator's) sets the bits above the seed's."""
+    return rank << 48 | (seed + 1) << 32 | step
 
 
 def run_training(cfg: Far3DConfig,
@@ -63,7 +75,8 @@ def run_training(cfg: Far3DConfig,
     the latest checkpoint in `work_dir`. `eval_fn(state)` runs every
     ``checkpoint_every`` steps. The last step is always saved. `profile_at`
     traces steps profile_at .. profile_at + 2 into ``work_dir/trace.json``.
-    Runs on the card unless `device` says otherwise."""
+    Runs on the card unless `device` says otherwise; under data parallelism
+    on each rank, with the rank's loader (see the module docstring)."""
     tc = cfg.train
     device = resolve_device(device)
     model = build_model(cfg, device, weights=init_state_dict(cfg, tc.seed))
@@ -116,10 +129,14 @@ def train_loop(state: TrainState, tstate, step_fn, tc: TrainConfig, loader,
     `max_iters` (default ``tc.total_iters``), with the logs, saves, resume,
     evaluation and profiling that ``run_training`` describes."""
     max_iters = max_iters or tc.total_iters
+    rank, _ = mesh.rank_and_world()
+    main = mesh.is_main()
     ckpt = CheckpointManager(work_dir, max_to_keep=tc.keep_checkpoints,
                              save_interval=tc.checkpoint_every)
-    if resume and ckpt.restore(state) is not None:
+    if resume and ckpt.restore(state) is not None and main:
         log.info('resumed from step %d', state.step)
+    # the ranks go on from rank 0's state (a loaded .pth, a resume included)
+    broadcast_state_(state)
 
     noise_gen = torch.Generator()
     dropout_gen = torch.Generator(device=device)
@@ -129,7 +146,7 @@ def train_loop(state: TrainState, tstate, step_fn, tc: TrainConfig, loader,
     t0, data_time = time.perf_counter(), 0.0
     while state.step < max_iters:
         it = state.step
-        if profile_at is not None and it == profile_at:
+        if main and profile_at is not None and it == profile_at:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if device.type == 'cuda':
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -140,14 +157,14 @@ def train_loop(state: TrainState, tstate, step_fn, tc: TrainConfig, loader,
         data_time += time.perf_counter() - t_wait
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         noise_gen.manual_seed(step_seed(tc.seed, it))
-        dropout_gen.manual_seed(step_seed(tc.seed, it))
+        dropout_gen.manual_seed(step_seed(tc.seed, it, rank))
         state, tstate, metrics = step_fn(state, tstate, batch, it,
                                          noise_gen, dropout_gen)
         if prof is not None and it == profile_at + 2:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(f'{work_dir}/trace.json')
             prof = None
-        if (it + 1) % window == 0:
+        if main and (it + 1) % window == 0:
             m = {k: float(v) for k, v in metrics.items()}
             dt = (time.perf_counter() - t0) / window
             m.update(time=dt, data_time=data_time / window)

@@ -18,9 +18,18 @@ optimizer and a step count, updated in place and returned.
 The step's parts are labelled with ``torch.profiler.record_function``
 (train.inputs, train.forward, train.loss_3d, which holds the one host
 synchronization of the matching, train.loss_2d, train.backward,
-train.optimizer) so that ``tools/profile_torch_port.py --train`` can say
-where a step's time goes; outside a profiler a label costs a few
-microseconds of host time.
+train.optimizer, which holds train.grad_all_reduce) so that
+``tools/profile_torch_port.py --train`` can say where a step's time goes;
+outside a profiler a label costs a few microseconds of host time.
+
+Data parallelism (``parallel/mesh.py``): each rank steps on its lanes of the
+global batch. ``train_step`` draws the DN noise for the global batch from
+the generator, seeded alike on every rank, and keeps the rank's lanes, so a
+rank draws what one process would draw for those lanes; the grid mask is
+one draw a step, the same on every rank, as in the JAX step. The BN
+statistics, the loss normalizers and the gradients are the global batch's
+(``models/layers.py``, ``losses{2d,3d}.py``, ``optim.py``) and the metrics
+are the ranks' mean, so they read as the JAX step's on the global batch.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from ..models.detector import Far3D, decode_detections, level_shapes
 from ..models.farhead import TemporalState, init_state
 from ..models.heads2d import make_priors
 from ..ops import grid_mask
+from ..parallel import mesh
 from .dn import build_queries, draw_noise
 from .losses2d import yolox_loss
 from .losses3d import farhead_loss
@@ -147,6 +157,7 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
 
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics['total_loss'] = total.detach()
+    metrics = mesh.mean_over_ranks(metrics)
     metrics['grad_norm'] = grad_norm.detach()
     new_t = out['state']
     new_t = TemporalState(**{f.name: getattr(new_t, f.name).detach()
@@ -158,8 +169,11 @@ def train_step(cfg: Far3DConfig, state: TrainState, tstate: TemporalState,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
                dropout_generator: Optional[torch.Generator] = None,
                use_gt_depth: bool = True):
-    """``draw_step_noise`` then ``step_from_noise``."""
-    noise = draw_step_noise(cfg, batch['images'].shape[0], generator)
+    """``draw_step_noise`` for the global batch, the rank's lanes of it,
+    then ``step_from_noise``."""
+    rank, world = mesh.rank_and_world()
+    noise = mesh.shard_batch(draw_step_noise(
+        cfg, batch['images'].shape[0] * world, generator), rank, world)
     return step_from_noise(cfg, state, tstate, batch, noise,
                            dropout_generator, use_gt_depth)
 

@@ -21,7 +21,9 @@ def test_import_loads_no_jax():
             'far3d_tpu_torch.ops.qconv_cuda, far3d_tpu_torch.ops.quant, '
             'far3d_tpu_torch.ops.ese_requant_cuda, '
             'far3d_tpu_torch.train.step, far3d_tpu_torch.train.petr_step, '
-            'far3d_tpu_torch.models.streampetr; '
+            'far3d_tpu_torch.models.streampetr, '
+            'far3d_tpu_torch.parallel.mesh, '
+            'far3d_tpu_torch.parallel.cam_shard; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -55,6 +57,19 @@ def test_entry_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry(tiny_test_config())
+
+
+def test_init_distributed_without_a_card_raises(monkeypatch):
+    """A card asked for (or NCCL) with none present raises: no quiet switch
+    to gloo on the CPU."""
+    from far3d_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setenv('RANK', '0')
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    for kw in ({'device': 'cuda'}, {}, {'device': 'cpu', 'backend': 'nccl'}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mesh.init_distributed(**kw)
+    assert mesh.group() is None
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
