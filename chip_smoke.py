@@ -148,8 +148,26 @@ Phases, each raising on failure:
      unsharded frame: two f32 frames held at CAM_TOL, then bf16 frames
      timed, the FPN output held at CAM_FPN_TOL, 6 msda_fwd launches a
      sharded frame.
+ 20. training at deployment scale: (a) the matching of one full-width
+     Far3D step (train_entry, synthetic_batch(cfg, 1, 0): 6 decoder
+     layers of 1156 x 160 and the DN cost) and one StreamPETR step
+     (petr_train_entry): host ms of scipy's exact solver (lsa_host, the
+     port's matching before the auction) and of the auction (its
+     CHECK_EVERY-iteration chunks replayed from a CUDA graph, and launched
+     op by op for comparison), its iterations, the auction on the card
+     bitwise equal to the auction on the CPU on the same costs, its total
+     cost within MATCH_GAP of scipy's optimum on every problem, and ms/step
+     of both families with each matcher, alternating; (b) cli.soak at full
+     width cut in depth (resume checks over SOAK_RESUME steps, both
+     bitwise; SOAK_ITERS steps across the GT-depth switch at SOAK_SWITCH,
+     finite windows; step 0's gradient norm and its carriers; 6 launches
+     of each MSDA kernel a step); (c) cli.overfit_full's
+     run_closed_loop_full at full width, CLOSED_STEPS steps with the
+     switch halfway and one evaluation through EvalLoader, run_inference
+     and the AV2 metrics: finite mAP and CDS, 6 launches of each MSDA
+     kernel a step (msda_fwd also 6 an eval frame).
 Then it prints a JSON line of phase 18's other readings, one of phase 19's,
-one JSON line of kernels and, last, the device line.
+one of phase 20's, one JSON line of kernels and, last, the device line.
 It exits non-zero without printing a result when no card is present.
 
 TF32 is switched off for matmuls and cuDNN convolutions, so that every f32
@@ -176,6 +194,8 @@ import torch
 import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
+from far3d_tpu_torch.cli import overfit_full as cli_overfit_full
+from far3d_tpu_torch.cli import soak as cli_soak
 from far3d_tpu_torch.cli import test as cli_test
 from far3d_tpu_torch.cli import test_nusc as cli_test_nusc
 from far3d_tpu_torch.cli import train_nusc as cli_train_nusc
@@ -202,7 +222,8 @@ from far3d_tpu_torch.parallel.cam_shard import make_cam_sharded_infer
 from far3d_tpu_torch.train.step import (create_train_state, draw_step_noise,
                                         make_infer_step, step_from_noise,
                                         train_step)
-from far3d_tpu_torch.train import runner
+from far3d_tpu_torch.train import dn as dn_mod
+from far3d_tpu_torch.train import losses3d, matching, runner
 from far3d_tpu_torch.train.petr_step import (create_petr_train_state,
                                              draw_petr_noise,
                                              petr_step_from_noise)
@@ -243,6 +264,10 @@ NCCL_STEPS = 3                 # run_training steps under NCCL at world 1
 DP_STEPS = 3                   # full-width steps of each of two gloo ranks
 CAM_FRAMES = 6                 # camera-sharded frames, and as many unsharded
 RANK_TIMEOUT_S = 600           # a phase-19 process's limit
+MATCH_STEPS = 8                # phase 20a: steps with each matcher, in turn
+SOAK_RESUME, SOAK_ITERS, SOAK_SWITCH = 8, 30, 15   # phase 20b: cli.soak
+CLOSED_STEPS = 40              # phase 20c: closed-loop steps, then one eval
+MATCH_GAP = 5e-3               # phase 20a: the auction's cost over scipy's
 # Phase 19e: the seven one-camera slices run the towers at batch 1, the
 # unsharded frame at batch 7, so cuDNN may take other algorithms and sum in
 # another order. With f32 images the detections and the carried state are
@@ -2633,6 +2658,286 @@ def cam_shard_phase(cfg, dev, card, ms_frame4):
                 f32_diffs=diffs, bf16_fpn_diff=fpn)
 
 
+# ---------------------------------------------------------------- phase 20
+def scipy_hungarian_match(costs, col_valid):
+    """The port's matching before the auction, the phase-20 baseline: the
+    costs to the host in one copy (invalid columns at BIG_COST), scipy's
+    exact solver per problem (lsa_host), the rows back in one copy."""
+    masked = [torch.where(v[..., None, :], c.detach().float(),
+                          torch.full_like(c, matching.BIG_COST,
+                                          dtype=torch.float32))
+              for c, v in zip(costs, col_valid)]
+    host = torch.cat([m.reshape(-1) for m in masked]).cpu().numpy()
+    rows, off = [], 0
+    for m in masked:
+        rows.append(matching.lsa_host(host[off:off + m.numel()].reshape(
+            m.shape)))
+        off += m.numel()
+    flat = torch.from_numpy(np.concatenate([r.reshape(-1) for r in rows]))
+    flat = flat.to(costs[0].device)
+    out, off = [], 0
+    for r in rows:
+        out.append(flat[off:off + r.size].reshape(r.shape))
+        off += r.size
+    return out
+
+
+class Matcher:
+    """Within the block, every matching of the training step goes through
+    `fn` (losses3d and dn look hungarian_match up at call time); `record`
+    keeps clones of the (costs, col_valid) of each call."""
+
+    def __init__(self, fn=None, record=None):
+        self.fn, self.record = fn, record
+
+    def __enter__(self):
+        self.saved = losses3d.hungarian_match, dn_mod.hungarian_match
+        inner = self.fn or self.saved[0]
+
+        def call(costs, col_valid):
+            if self.record is not None:
+                self.record.append(([c.detach().clone() for c in costs],
+                                    [v.clone() for v in col_valid]))
+            return inner(costs, col_valid)
+        losses3d.hungarian_match = dn_mod.hungarian_match = call
+
+    def __exit__(self, *exc):
+        losses3d.hungarian_match, dn_mod.hungarian_match = self.saved
+
+
+def timed_ms(fn, reps):
+    """Host wall ms of fn() (synchronized), median of `reps` after one."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def auction_eager_solver(benefit, valid, eps):
+    """The auction on a padded problem batch with its CHECK_EVERY-iteration
+    chunks launched op by op (matching._iterate), for the timing against
+    the module's CUDA-graph replay; returns solve() -> rows."""
+    def solve():
+        nb, c, r = benefit.shape
+        dev = benefit.device
+        price = torch.zeros(nb, r, device=dev)
+        owner = torch.full((nb, r), -1, dtype=torch.long, device=dev)
+        assign = torch.where(valid, -1, -2).long()
+        iters = torch.zeros((), dtype=torch.long, device=dev)
+        done = 0
+        while done < 500 and bool((assign == -1).any()):
+            n = min(matching.CHECK_EVERY, 500 - done)
+            matching._iterate(benefit, valid, eps, price, owner, assign,
+                              iters, n)
+            done += n
+        if bool((assign == -1).any()):
+            matching._greedy(benefit, owner, assign)
+        return assign.clamp_min(0)
+    return solve
+
+
+def matching_gaps(costs, col_valid, rows):
+    """Per problem: the auction's total cost over the valid columns against
+    scipy's optimum -> (relative gaps, all assignments distinct)."""
+    gaps, distinct = [], True
+    for cost, valid, got in zip(costs, col_valid, rows):
+        r, c = cost.shape[-2:]
+        cost = cost.detach().float().reshape(-1, r, c).cpu()
+        valid = valid.reshape(-1, c).cpu()
+        got = got.reshape(-1, c).cpu()
+        opt = torch.from_numpy(matching.lsa_host(torch.where(
+            valid[:, None], cost, matching.BIG_COST).numpy()))
+        for i in range(cost.shape[0]):
+            cols = valid[i].nonzero()[:, 0]
+            if not len(cols):
+                continue
+            ours = cost[i, got[i, cols], cols].double().sum().item()
+            best = cost[i, opt[i, cols], cols].double().sum().item()
+            gaps.append((ours - best) / max(abs(best), 1e-6))
+            distinct &= len(set(got[i, cols].tolist())) == len(cols)
+    return gaps, distinct
+
+
+def matching_family(name, make, card, steps=MATCH_STEPS):
+    """Phase 20a for one family: `make()` -> (step, (train_state, tstate))
+    at full width. Captures one step's matching problems; times scipy
+    (lsa_host, the port's matching before) and the auction on them, the
+    auction's iterations, the auction on the card against the CPU
+    bitwise and against scipy's optimum; then ms/step with each matcher,
+    alternating, in this call."""
+    step, (ts, tt) = make()
+    t0 = time.perf_counter()
+    ts, tt, _ = step(ts, tt)                   # warm-up, the graph's capture
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    captured = []
+    with Matcher(record=captured):
+        ts, tt, _ = step(ts, tt)
+    torch.cuda.synchronize()
+    costs, valid = captured[0]
+    shapes = [tuple(c.shape) for c in costs]
+    n_gt = int(valid[0].sum())
+    scipy_ms = timed_ms(lambda: scipy_hungarian_match(costs, valid), 5)
+    auction_ms = timed_ms(lambda: matching.hungarian_match(costs, valid), 5)
+    matching.reset_stats()
+    rows = matching.hungarian_match(costs, valid)
+    stats = dict(matching.STATS)
+    cpu_rows = matching.hungarian_match([c.cpu() for c in costs],
+                                        [v.cpu() for v in valid])
+    bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(rows, cpu_rows))
+    if not bitwise:
+        raise AssertionError(f'{name}: the auction on the card differs from '
+                             'the auction on the CPU on the same costs')
+    gaps, distinct = matching_gaps(costs, valid, rows)
+    if not distinct:
+        raise AssertionError(f'{name}: the auction gave a row to two columns')
+    if max(gaps) > MATCH_GAP:
+        raise AssertionError(f'{name}: the auction\'s cost is {max(gaps):.4%} '
+                             f'over scipy\'s optimum, above {MATCH_GAP:.1%}')
+    benefit, pvalid, eps = matching.padded_problems(costs, valid)
+    solve = auction_eager_solver(benefit, pvalid, eps)
+    if not torch.equal(solve(), matching._solve(benefit, pvalid, eps, 500)):
+        raise AssertionError(f'{name}: the eager chunks differ from the '
+                             'graph replay')
+    eager_ms = timed_ms(solve, 5)
+
+    per = {'lsa_host': scipy_hungarian_match, 'auction': None}
+    ms = {k: [] for k in per}
+    for _ in range(steps):
+        for k, fn in per.items():
+            with Matcher(fn):
+                t0 = time.perf_counter()
+                ts, tt, m = step(ts, tt)
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(float(m['total_loss'])):
+                raise AssertionError(f'{name}: non-finite loss with {k}')
+    out = {'shapes': shapes, 'valid_gt': n_gt, 'problems': stats['problems'],
+           'lsa_host_ms': scipy_ms, 'auction_ms': auction_ms,
+           'auction_eager_ms': eager_ms, 'iterations': stats['iterations'],
+           'greedy': stats['greedy'], 'bitwise_card_cpu': bitwise,
+           'gap_max': max(gaps), 'gap_mean': float(np.mean(gaps)),
+           'gap_problems': len(gaps),
+           'ms_step_lsa_host': statistics.median(ms['lsa_host']),
+           'ms_step_auction': statistics.median(ms['auction']),
+           'first_step_ms': first_ms}
+    log(f'  {name}: costs {shapes}, {n_gt} valid GT, {stats["problems"]} '
+        f'problems; matching host ms: lsa_host {scipy_ms:.2f}, auction '
+        f'{auction_ms:.2f} ({stats["iterations"]} iterations, greedy '
+        f'{stats["greedy"]}; its {matching.CHECK_EVERY}-iteration chunks '
+        f'replayed from a CUDA graph, {eager_ms:.2f} launched op by op); '
+        f'auction bitwise equal '
+        f'card vs CPU; cost gap to scipy over {len(gaps)} problems: max '
+        f'{max(gaps):.4%}, mean {np.mean(gaps):.4%}; ms/step (median of '
+        f'{steps}, alternating) lsa_host {out["ms_step_lsa_host"]:.2f}, '
+        f'auction {out["ms_step_auction"]:.2f} [{card}]')
+    return out
+
+
+def soak_phase(card):
+    """Phase 20b: cli.soak at full width, cut in depth."""
+    with tempfile.TemporaryDirectory(prefix='far3d_soak_') as tmp:
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        out = cli_soak.run_soak(iters=SOAK_ITERS, switch_at=SOAK_SWITCH,
+                                resume_iters=SOAK_RESUME,
+                                log=f'{tmp}/soak.jsonl', work=f'{tmp}/ckpt')
+        launches = {k: _build.launch_counts[k] for k in MSDA_NAMES}
+        wall = time.perf_counter() - t0
+    steps = 3 * SOAK_RESUME + SOAK_ITERS       # phase 1's four runs, phase 2
+    if launches != {k: LAYERS_PER_FRAME * steps for k in MSDA_NAMES}:
+        raise AssertionError(f'soak launches {launches}, expected '
+                             f'{LAYERS_PER_FRAME} of each in each of {steps} '
+                             'steps')
+    res = out['resume']
+    if res['repeat_diffs'] or res['resume_diffs']:
+        raise AssertionError(f'soak resume checks: repeat '
+                             f'{res["repeat_diffs"][:8]}, resume '
+                             f'{res["resume_diffs"][:8]}')
+    if not out['stability']['finite']:
+        raise AssertionError('soak: a non-finite window')
+    s_it = [w['s_per_it'] for w in out['stability']['windows']]
+    log(f'  both resume checks bitwise over {res["compared"]} tensors; '
+        f'{len(s_it)} windows finite, s/it {min(s_it):.3f}-{max(s_it):.3f}; '
+        f'launches {launches} ({LAYERS_PER_FRAME} of each in each of {steps} '
+        f'steps); {wall:.1f} s [{card}]')
+    return {'compared': res['compared'],
+            'windows': out['stability']['windows'],
+            'step0': out['stability']['step0'], 'launches': launches,
+            'wall_s': wall}
+
+
+def closed_loop_phase(card):
+    """Phase 20c: run_closed_loop_full at full width, cut in depth."""
+    real_step, step_ms, switch = runner.train_step, [], []
+
+    def timed_step(*args, use_gt_depth):
+        switch.append(use_gt_depth)
+        t0 = time.perf_counter()
+        out = real_step(*args, use_gt_depth=use_gt_depth)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix='far3d_ovf_') as tmp:
+        t0 = time.perf_counter()
+        runner.train_step = timed_step
+        try:
+            _build.reset_launch_counts()
+            curve = cli_overfit_full.run_closed_loop_full(
+                tmp, CLOSED_STEPS, eval_every=CLOSED_STEPS,
+                gt_depth_until=CLOSED_STEPS // 2)
+            launches = {k: _build.launch_counts[k] for k in MSDA_NAMES}
+        finally:
+            runner.train_step = real_step
+        wall = time.perf_counter() - t0
+        n_eval = len(AV2SequenceDataset(f'{tmp}/infos.pkl', tmp, split='val',
+                                        seq_split_num=1, test_mode=False))
+    if switch != [i < CLOSED_STEPS // 2 for i in range(CLOSED_STEPS)]:
+        raise AssertionError(f'GT depth by step {switch}')
+    want = {msda_cuda.FWD: LAYERS_PER_FRAME * (CLOSED_STEPS + n_eval),
+            msda_cuda.DVAL: LAYERS_PER_FRAME * CLOSED_STEPS,
+            msda_cuda.DATTN: LAYERS_PER_FRAME * CLOSED_STEPS}
+    if launches != want:
+        raise AssertionError(f'closed loop launches {launches}, expected '
+                             f'{want} (6 a step, 6 an eval frame forward)')
+    last = curve[-1]
+    if not (len(curve) == 1 and last['iter'] == CLOSED_STEPS
+            and np.isfinite(last['mAP']) and np.isfinite(last['CDS'])):
+        raise AssertionError(f'closed loop curve {curve}')
+    ms_step = statistics.median(step_ms[2:])
+    log(f'  {CLOSED_STEPS} steps (GT depth until {CLOSED_STEPS // 2}), one '
+        f'eval of {n_eval} frames: mAP {last["mAP"]:.4f}, CDS '
+        f'{last["CDS"]:.4f}; launches {launches} ({LAYERS_PER_FRAME} of each '
+        f'a step, msda_fwd also {LAYERS_PER_FRAME} an eval frame); '
+        f'{ms_step:.2f} ms/step (median of steps 2..{CLOSED_STEPS - 1}); '
+        f'eval {last["eval_s"]:.1f} s; {wall:.1f} s with the dataset and '
+        f'cache [{card}]')
+    return {'curve': curve, 'launches': launches, 'eval_frames': n_eval,
+            'ms_step': ms_step, 'wall_s': wall}
+
+
+def phase20(card):
+    log('== phase 20a: matching on both families\' training steps, full width')
+    match = {'far3d': matching_family('Far3D', train_entry, card),
+             'streampetr': matching_family('StreamPETR', petr_train_entry,
+                                           card)}
+    torch.cuda.empty_cache()
+    log('== phase 20b: cli.soak at full width, cut in depth')
+    soak = soak_phase(card)
+    torch.cuda.empty_cache()
+    log('== phase 20c: cli.overfit_full at full width, cut in depth')
+    closed = closed_loop_phase(card)
+    torch.cuda.empty_cache()
+    return {'card': card, 'matching': match, 'soak': soak,
+            'closed_loop': closed}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2889,6 +3194,10 @@ def main():
     log('== phase 19e: camera-sharded inference, 7 slices on this card')
     cam = cam_shard_phase(cfg, dev, card, ms_frame)
     torch.cuda.empty_cache()
+
+    log('== phase 20: training at deployment scale: matching, the soak, '
+        'the closed loop')
+    p20 = phase20(card)
     dp_launches = {
         name: {'19a_nccl_world1': dp_a['launches'][name],
                '19b_rank0': dp_b[0]['launches'][name],
@@ -2896,6 +3205,10 @@ def main():
                **({'19e_cam_shard': cam['launches']}
                   if name == msda_cuda.FWD else {})}
         for name in MSDA_NAMES}
+    p20_launches = {name: {'20b_soak': p20['soak']['launches'][name],
+                           '20c_overfit_full':
+                               p20['closed_loop']['launches'][name]}
+                    for name in MSDA_NAMES}
 
     petr_common = {'streampetr_ms_per_frame_bf16': petr['bf16_frame_ms'],
                    'streampetr_ms_per_frame_int8': petr['int8_frame_ms'],
@@ -2918,6 +3231,7 @@ def main():
     kernels = {'kernels': [{
         'name': 'msda_fwd', **common, **petr_launches('msda_fwd'),
         'dp_launches': dp_launches[msda_cuda.FWD],
+        'training_launches': p20_launches[msda_cuda.FWD],
         'source': 'far3d_tpu_torch/csrc/msda_fwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
@@ -2936,6 +3250,7 @@ def main():
     }, {
         'name': 'msda_dval', **common, **petr_launches('msda_dval'),
         'dp_launches': dp_launches[msda_cuda.DVAL],
+        'training_launches': p20_launches[msda_cuda.DVAL],
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:260',
         'launches': train_launches['msda_dval'],
@@ -2952,6 +3267,7 @@ def main():
     }, {
         'name': 'msda_dattn', **common, **petr_launches('msda_dattn'),
         'dp_launches': dp_launches[msda_cuda.DATTN],
+        'training_launches': p20_launches[msda_cuda.DATTN],
         'source': 'far3d_tpu_torch/csrc/msda_bwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:348',
         'launches': train_launches['msda_dattn'],
@@ -3077,6 +3393,7 @@ def main():
         'nccl_world1': dp_a, 'gloo_two_ranks_one_card': dp_b,
         'tiny_dp_vs_one': dp_c, 'cli_test_two_ranks': dp_d,
         'cam_shard': cam}))
+    log('Training at scale (phase 20): ' + json.dumps(p20))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

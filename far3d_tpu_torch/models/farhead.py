@@ -138,7 +138,11 @@ def build_query2d_proposals(proposals: Dict[str, torch.Tensor],
     cam_idx = proposals['cam_idx']
     b, k = cam_idx.shape
     boxes = proposals['boxes']
-    scores = proposals['scores'][..., 0].clamp(1e-5, 1 - 1e-5)
+    # the log-odds in f32: in bf16, 1 - 1e-5 rounds to 1, so a saturated
+    # score (any logit pair above about 6.2) would give an infinite log-odds
+    # and a NaN context (the JAX package clips in the scores' dtype,
+    # farhead.py:154)
+    scores = proposals['scores'][..., 0].float().clamp(1e-5, 1 - 1e-5)
     valid = proposals['valid']
     topk = max(md_cfg.topk, 1)
     pad_h, pad_w = pad_hw

@@ -9,7 +9,7 @@ the real count are invalid. Noise model (farhead.py:344-361):
   negative: center + sign * (rand + offset)   * log(|center| + 1)   (per axis)
 
 Split in three so that a test can hand in the JAX package's draws and the
-step can match everything in one host copy: ``draw_noise`` takes the random
+step can match everything in one batch: ``draw_noise`` takes the random
 numbers from a ``torch.Generator``; ``build_queries`` is a deterministic
 function of them that returns the DN reference points and the L1 cost of
 each (group, sample slot) against each GT center; ``assign_targets`` turns
@@ -121,10 +121,9 @@ def assign_targets(dn: Dict[str, torch.Tensor], row_for_col: torch.Tensor,
 
 def build_dn(noise, gt_boxes, gt_labels, gt_mask, cfg: HeadConfig,
              pc_range) -> Dict[str, torch.Tensor]:
-    """``build_queries`` and ``assign_targets`` with a matching of their own
-    (one host copy): the counterpart of the JAX package's
-    ``build_dn_queries``. The train step instead matches the DN cost together
-    with every decoder layer's cost."""
+    """``build_queries`` and ``assign_targets`` with a matching of their own:
+    the counterpart of the JAX package's ``build_dn_queries``. The train step
+    instead matches the DN cost together with every decoder layer's cost."""
     dn = build_queries(noise, gt_boxes, gt_labels, gt_mask, cfg, pc_range)
     col_ok = dn['mask'][:, None].expand(-1, cfg.dn_groups, -1)
     rows, = hungarian_match([dn['cost']], [col_ok])

@@ -5,8 +5,8 @@ Per decoder layer: a Hungarian match of queries to GT boxes (focal class
 cost + L1 box cost on the normalized code, hungarian_assigner_3d.py:29-91),
 then a focal class loss and a weighted L1 box loss; with DN queries, the DN
 terms against the DN targets. ``farhead_loss`` builds every layer's cost and
-the DN cost first and matches them all in one host copy
-(``matching.hungarian_match``). Under data parallelism the normalizers (the
+the DN cost first and matches them all as one batch of auction problems
+on the device (``matching.hungarian_match``). Under data parallelism the normalizers (the
 positives, the DN targets) are the global batch's (``parallel.mesh.
 normalizer``), so that the ranks' averaged loss and gradient are the JAX
 step's on the global batch.
@@ -72,8 +72,8 @@ def targets_from_match(row_for_col: torch.Tensor, query_valid: torch.Tensor,
 
 def match_targets(cls_scores, bbox_preds, query_valid, gt_boxes, gt_labels,
                   gt_mask, cfg: HeadConfig):
-    """One layer's Hungarian assignment (losses3d.py:29-69), with its own
-    host copy; ``farhead_loss`` batches all layers instead."""
+    """One layer's Hungarian assignment (losses3d.py:29-69), matched on its
+    own; ``farhead_loss`` batches all layers instead."""
     cost = match_cost(cls_scores, bbox_preds, query_valid, gt_boxes,
                       gt_labels, gt_mask, cfg)
     rows, = hungarian_match([cost], [gt_mask.bool()])

@@ -16,8 +16,8 @@ on the model's device, passed to the forward. The state is a model, its
 optimizer and a step count, updated in place and returned.
 
 The step's parts are labelled with ``torch.profiler.record_function``
-(train.inputs, train.forward, train.loss_3d, which holds the one host
-synchronization of the matching, train.loss_2d, train.backward,
+(train.inputs, train.forward, train.loss_3d, which holds the matching's
+auction and its convergence tests, train.loss_2d, train.backward,
 train.optimizer, which holds train.grad_all_reduce) so that
 ``tools/profile_torch_port.py --train`` can say where a step's time goes;
 outside a profiler a label costs a few microseconds of host time.

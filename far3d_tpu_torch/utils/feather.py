@@ -1,13 +1,22 @@
-"""A small Feather V2 writer: an uncompressed Arrow IPC file of int64,
-float64 and utf8 columns, one record batch, no nulls.
+"""A small Feather V2 writer and reader: Arrow IPC files of int64, float64
+and utf8 columns without nulls.
 
 The AV2 submission is a Feather file (``DataFrame.to_feather`` in the JAX
-package). The machine with the card has neither pandas nor pyarrow, so the
-port writes the format itself: the Arrow IPC file layout (``ARROW1``, the
-schema message, one record batch message, the footer) with its FlatBuffers
-metadata built by hand, following the Arrow format's Schema.fbs,
-Message.fbs and File.fbs. ``num_rows`` reads the row count back from the
-file's footer.
+package), and so are the AV2 logs' poses, calibration and annotations
+(``tools/create_av2_infos.py`` reads them with ``pandas.read_feather``).
+The machine with the card has neither pandas nor pyarrow, so the port
+handles the format itself: the Arrow IPC file layout (``ARROW1``, the
+schema message, the record batch messages, the footer) with its
+FlatBuffers metadata built and read by hand, following the Arrow format's
+Schema.fbs, Message.fbs and File.fbs.
+
+``write_feather`` writes one uncompressed record batch. ``read_feather``
+reads every record batch the footer lists, uncompressed or with each buffer
+LZ4-frame compressed (pyarrow's default for Feather V2; the LZ4 frame and
+block formats are decoded here in Python, without checking the optional
+xxHash checksums); a ZSTD-compressed file raises. Integer columns of any
+width, float32 and float64, utf8 and large utf8 are read. ``num_rows`` reads
+the row count from the footer.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ CONTINUATION = 0xFFFFFFFF
 V5 = 4                                    # MetadataVersion.V5
 _SCHEMA, _RECORD_BATCH = 1, 3             # MessageHeader union tags
 _INT, _FLOAT, _UTF8 = 2, 3, 5             # Type union tags
+_LARGE_UTF8 = 20
 _DOUBLE = 2                               # Precision.DOUBLE
+_LZ4_FRAME, _ZSTD = 0, 1                  # CompressionType
 
 
 # ---------------------------------------------------------------------------
@@ -238,3 +249,179 @@ def num_rows(path: str) -> int:
             raise ValueError(f'{path}: block {i} is not a record batch')
         total += _read_table(meta, message(2, None))(0, 'q')
     return total
+
+
+# ---------------------------------------------------------------------------
+# the reader
+# ---------------------------------------------------------------------------
+
+def _lz4_block(src: bytes, pos: int, end: int, out: bytearray) -> None:
+    """Decode one LZ4 block, src[pos:end], onto `out` (matches may reach
+    back into what earlier blocks of the frame wrote)."""
+    while pos < end:
+        token = src[pos]
+        pos += 1
+        n = token >> 4
+        if n == 15:
+            while True:
+                b = src[pos]
+                pos += 1
+                n += b
+                if b != 255:
+                    break
+        out += src[pos:pos + n]
+        pos += n
+        if pos >= end:                  # the last sequence has no match
+            break
+        offset = src[pos] | src[pos + 1] << 8
+        pos += 2
+        n = (token & 15) + 4
+        if n == 19:
+            while True:
+                b = src[pos]
+                pos += 1
+                n += b
+                if b != 255:
+                    break
+        start = len(out) - offset
+        if offset <= 0 or start < 0:
+            raise ValueError('feather: corrupt LZ4 block')
+        if n <= offset:
+            out += out[start:start + n]
+        else:                           # an overlapping (repeating) match
+            for i in range(n):
+                out.append(out[start + i])
+
+
+def lz4_frame_decode(src: bytes) -> bytes:
+    """The content of an LZ4 frame (the LZ4 frame format, version 01):
+    the header's descriptor, then blocks, compressed or stored, until the
+    end mark; block and content checksums are skipped."""
+    if struct.unpack_from('<I', src, 0)[0] != 0x184D2204:
+        raise ValueError('feather: not an LZ4 frame')
+    flg = src[4]
+    if flg >> 6 != 1:
+        raise ValueError(f'feather: LZ4 frame version {flg >> 6}')
+    pos = 6 + (8 if flg & 0x08 else 0) + (4 if flg & 0x01 else 0) + 1
+    block_checksum = bool(flg & 0x10)
+    out = bytearray()
+    while True:
+        size = struct.unpack_from('<I', src, pos)[0]
+        pos += 4
+        if size == 0:
+            break
+        stored, size = bool(size & 0x80000000), size & 0x7FFFFFFF
+        if stored:
+            out += src[pos:pos + size]
+        else:
+            _lz4_block(src, pos, pos + size, out)
+        pos += size + (4 if block_checksum else 0)
+    return bytes(out)
+
+
+def _column_type(footer: bytes, field) -> str:
+    """A schema field's numpy dtype string, or 'utf8' / 'large_utf8'."""
+    if field(4, None) is not None:
+        raise ValueError('feather: dictionary-encoded columns are not read')
+    tag, typ = field(2, 'B'), field(3, None)
+    if tag == _INT:
+        t = _read_table(footer, typ)
+        bits, signed = t(0, 'i') or 0, bool(t(1, '?'))
+        return f'<{"i" if signed else "u"}{bits // 8}'
+    if tag == _FLOAT:
+        precision = _read_table(footer, typ)(0, 'h') or 0
+        if precision == 0:
+            raise ValueError('feather: half-precision columns are not read')
+        return '<f4' if precision == 1 else '<f8'
+    if tag == _UTF8:
+        return 'utf8'
+    if tag == _LARGE_UTF8:
+        return 'large_utf8'
+    raise ValueError(f'feather: no reader for the Arrow type tag {tag}')
+
+
+def read_feather(path: str) -> Dict[str, np.ndarray]:
+    """{column name: 1-d numpy array} of a Feather V2 (Arrow IPC) file, in
+    the schema's order, the record batches concatenated; utf8 columns come
+    as object arrays of str, as ``pandas.read_feather`` gives them."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:6] != MAGIC or data[-6:] != MAGIC:
+        raise ValueError(f'{path} is not an Arrow IPC (Feather V2) file')
+    footer_len = struct.unpack_from('<i', data, len(data) - 10)[0]
+    footer = data[len(data) - 10 - footer_len:len(data) - 10]
+    root = _read_table(footer, struct.unpack_from('<I', footer, 0)[0])
+    schema = _read_table(footer, root(1, None))
+    fields_at = schema(1, None)
+    names, types = [], []
+    for i in range(struct.unpack_from('<I', footer, fields_at)[0]):
+        at = fields_at + 4 + 4 * i
+        field = _read_table(footer, at + struct.unpack_from('<I', footer,
+                                                            at)[0])
+        name_at = field(0, None)
+        n = struct.unpack_from('<I', footer, name_at)[0]
+        names.append(footer[name_at + 4:name_at + 4 + n].decode())
+        types.append(_column_type(footer, field))
+    dicts = root(2, None)
+    if dicts is not None and struct.unpack_from('<I', footer, dicts)[0]:
+        raise ValueError(f'{path}: dictionary batches are not read')
+
+    parts: List[List[np.ndarray]] = [[] for _ in names]
+    blocks = root(3, None)
+    for b in range(struct.unpack_from('<I', footer, blocks)[0]):
+        offset, meta_len, _ = struct.unpack_from('<qi4xq', footer,
+                                                 blocks + 4 + 24 * b)
+        skip = 8 if struct.unpack_from('<I', data, offset)[0] == CONTINUATION \
+            else 4
+        meta = data[offset + skip:offset + meta_len]
+        message = _read_table(meta, struct.unpack_from('<I', meta, 0)[0])
+        if message(1, 'B') != _RECORD_BATCH:
+            raise ValueError(f'{path}: block {b} is not a record batch')
+        batch = _read_table(meta, message(2, None))
+        rows = batch(0, 'q') or 0
+        nodes_at, bufs_at = batch(1, None), batch(2, None)
+        codec = None
+        if batch(3, None) is not None:
+            codec = _read_table(meta, batch(3, None))(0, 'b') or _LZ4_FRAME
+            if codec == _ZSTD:
+                raise ValueError(f'{path}: ZSTD-compressed Feather buffers '
+                                 'are not read (LZ4 frame and uncompressed '
+                                 'are)')
+        body = offset + meta_len
+
+        def buffer(k: int) -> bytes:
+            off, length = struct.unpack_from('<qq', meta, bufs_at + 4 + 16 * k)
+            raw = data[body + off:body + off + length]
+            if codec is None or not length:
+                return raw
+            size = struct.unpack_from('<q', raw, 0)[0]
+            return raw[8:] if size == -1 else lz4_frame_decode(raw[8:])
+
+        k = 0
+        for col, kind in enumerate(types):
+            length, nulls = struct.unpack_from('<qq', meta,
+                                               nodes_at + 4 + 16 * col)
+            if nulls:
+                raise ValueError(f'{path}: column {names[col]!r} holds '
+                                 f'{nulls} nulls, which are not read')
+            k += 1                                      # the validity bitmap
+            if kind in ('utf8', 'large_utf8'):
+                offs = np.frombuffer(buffer(k), '<i4' if kind == 'utf8'
+                                     else '<i8')[:length + 1]
+                chars = buffer(k + 1)
+                values = np.empty(length, object)
+                for i in range(length):
+                    values[i] = chars[offs[i]:offs[i + 1]].decode()
+                k += 2
+            else:
+                values = np.frombuffer(buffer(k), kind)[:length].astype(
+                    np.dtype(kind).newbyteorder('='))
+                k += 1
+            parts[col].append(values)
+        if any(len(p[-1]) != rows for p in parts):
+            raise ValueError(f'{path}: block {b} has columns of other '
+                             'lengths than its row count')
+    return {n: (np.concatenate(p) if p else np.zeros(0, object
+                                                     if t.endswith('utf8')
+                                                     else t))
+            for n, t, p in zip(names, types, parts)}

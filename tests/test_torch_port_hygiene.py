@@ -23,8 +23,24 @@ def test_import_loads_no_jax():
             'far3d_tpu_torch.train.step, far3d_tpu_torch.train.petr_step, '
             'far3d_tpu_torch.models.streampetr, '
             'far3d_tpu_torch.parallel.mesh, '
-            'far3d_tpu_torch.parallel.cam_shard; '
+            'far3d_tpu_torch.parallel.cam_shard, '
+            'far3d_tpu_torch.train.matching, far3d_tpu_torch.cli.soak, '
+            'far3d_tpu_torch.cli.overfit_full; '
             f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_data_tools_load_neither_jax_nor_pandas():
+    """The data-preparation tools and the Feather reader run where the card
+    is, which has neither jax nor pandas nor pyarrow."""
+    forbidden = FORBIDDEN + ('pandas', 'pyarrow')
+    code = ('import sys, far3d_tpu_torch.cli.create_av2_infos, '
+            'far3d_tpu_torch.cli.create_nusc_infos, '
+            'far3d_tpu_torch.cli.info2coco, far3d_tpu_torch.utils.feather; '
+            f'bad = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]; '
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                           capture_output=True, text=True)

@@ -428,3 +428,41 @@ def test_farhead_two_frames(setup):
                       'velo'):
             _close(getattr(tstate, field), getattr(jstate, field),
                    msg=f'state.{field} frame {frame}')
+
+
+def test_query2d_log_odds_of_saturated_bf16_scores_are_finite(setup):
+    """With bf16 heads a confident 2D proposal's score rounds to 1.0, and
+    1 - 1e-5 rounds to 1.0 too, so a clip in the scores' dtype leaves an
+    infinite log-odds and a NaN context: the full-width closed loop met it
+    at its second step. The port takes the log-odds in f32: a score of 1.0
+    reads as the clip's 1 - 1e-5."""
+    from far3d_tpu_torch.models.farhead import build_query2d_proposals
+    _, cfg, _, _ = setup
+    n = cfg.data.num_cams
+    h, w = cfg.data.input_hw
+    d = cfg.depthnet
+    h8, w8 = h // d.stride, w // d.stride
+    k = 4
+    proposals = dict(
+        boxes=torch.tensor([[[20.0, 16.0, 8.0, 8.0]] * k]),
+        scores=torch.tensor([[[1.0], [0.999], [0.5], [0.2]]],
+                            dtype=torch.bfloat16),
+        cam_idx=torch.zeros(1, k, dtype=torch.long),
+        flat_idx=torch.arange(k)[None],
+        valid=torch.ones(1, k, dtype=torch.bool))
+    depth_probs = torch.full((1, n, h8 * w8, d.num_depth_bins + 1),
+                             1.0 / (d.num_depth_bins + 1))
+    feat = torch.zeros(1, n, 40, 8, dtype=torch.bfloat16)
+    intr, extr = ring_cameras(n, h, w)
+    l2i = torch.from_numpy(np.einsum('nij,njk->nik', intr, extr)[None]
+                           .astype(np.float32))
+    _, ctx, _ = build_query2d_proposals(
+        proposals, depth_probs, feat, l2i, (h, w), d, cfg.head.multi_depth,
+        cfg.pc_range, cfg.roi2d.threshold_score)
+    assert torch.isfinite(ctx.float()).all()
+    s = max(cfg.head.multi_depth.topk, 1)
+    lo = ctx[0, ::s, -1].float()
+    thr = cfg.roi2d.threshold_score
+    want = np.log(np.float32(1 - 1e-5) / np.float32(1e-5)) - np.log(
+        thr / (1 - thr))
+    np.testing.assert_allclose(lo[0].item(), want, rtol=1e-2)

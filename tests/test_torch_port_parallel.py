@@ -10,8 +10,8 @@ own timeout; a rank that fails stops the other.
   backward; no group without a launch, and no quiet CPU fallback;
 * two ranks at batch 1 against the JAX package's ``make_train_step`` at
   batch 2 on the same weights (the twin of tests/test_train_step.py:41-83
-  across frameworks): tiny, f32, dropout 0, scipy matching, the JAX step's
-  batch-2 draws cut by lane. Losses, grad norm, Adam's first moments, the
+  across frameworks): tiny, f32, dropout 0, the auction on both sides, the
+  JAX step's batch-2 draws cut by lane. Losses, grad norm, Adam's first moments, the
   updated parameters and YOLOX BN statistics at ``TOL`` (rtol 1e-3 / atol
   2e-3), the temporal state lane by lane, the ranks' parameters bitwise
   equal. Two batches: the synthetic one (5 and 3 GT boxes in the lanes),
@@ -39,7 +39,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +53,6 @@ import far3d_tpu_torch.models.streampetr as tsp
 from _torch_parallel_worker import state_digest
 from _torch_port_setup import TOL, shared_weights, to_np
 from far3d_tpu.models.farhead import init_state as jax_init_state
-from far3d_tpu.train import losses3d as jax_losses3d
 from far3d_tpu.train.optim import make_optimizer as jax_make_optimizer
 from far3d_tpu.train.petr_step import make_petr_train_step
 from far3d_tpu.train.step import TrainState as JaxTrainState
@@ -75,8 +73,7 @@ from far3d_tpu_torch.utils.synthetic import (petr_synthetic_batch,
 from test_data import make_fake_infos
 from test_torch_port_petr import (_assert_moments, _moments, _petr_shim,
                                   jax_petr_noise, petr_frame, random_leaves)
-from test_torch_port_train_step import (_jax_first_moments, scipy_matcher,
-                                        scipy_matching, train_cfgs)
+from test_torch_port_train_step import _jax_first_moments, train_cfgs
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = REPO / 'tests' / '_torch_parallel_worker.py'
@@ -242,14 +239,12 @@ def far3d_dp(request, tmp_path_factory):
         ema_params=None)
     jt = jax_init_state(WORLD, jax_cfg.head)
     jmetrics = []
-    p1, p2 = scipy_matching()
-    with p1, p2:
-        step = _jax_step('far3d', lambda: make_train_step(
-            jax_cfg, use_gt_depth=True))
-        for s in range(STEPS):
-            b = jbatch if s == 0 else jbatch.replace(**NEXT_FRAME)
-            jstate, jt, m = step(jstate, jt, b, key)
-            jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
+    step = _jax_step('far3d', lambda: make_train_step(
+        jax_cfg, use_gt_depth=True))
+    for s in range(STEPS):
+        b = jbatch if s == 0 else jbatch.replace(**NEXT_FRAME)
+        jstate, jt, m = step(jstate, jt, b, key)
+        jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
 
     outs = _run_ranks(tmp_path_factory.mktemp('far3d_dp'), dict(
         family='far3d', cfg=port_cfg, state_dict=sd, batch=pbatch,
@@ -361,12 +356,11 @@ def petr_dp(tmp_path_factory):
     counts = np.asarray(jbatch.gt_mask).sum(1)
     assert counts[0] != counts[1], counts
     jmetrics = []
-    with mock.patch.object(jax_losses3d, 'hungarian_match', scipy_matcher):
-        step = _jax_step('petr', lambda: make_petr_train_step(jc, jtrain))
-        for s in range(STEPS):
-            b = jbatch if s == 0 else jbatch.replace(**NEXT_FRAME)
-            jstate, jt, m = step(jstate, jt, b, key)
-            jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
+    step = _jax_step('petr', lambda: make_petr_train_step(jc, jtrain))
+    for s in range(STEPS):
+        b = jbatch if s == 0 else jbatch.replace(**NEXT_FRAME)
+        jstate, jt, m = step(jstate, jt, b, key)
+        jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
 
     noises = [jax_petr_noise(jc, jtrain, key, s) for s in range(STEPS)]
     assert all(n['grid_mask']['apply'] for n in noises)

@@ -17,13 +17,12 @@ both sides, sums in other orders), unless a test says otherwise.
 * the ``quant_backbone=`` hook: what reaches the FPN is bitwise the JAX int8
   backbone's output from the same amax;
 * two training steps against ``make_petr_train_step`` (dropout 0, grid mask
-  on with the JAX step's draws, scipy matching on both sides): losses, grad
+  on with the JAX step's draws, the auction on both sides): losses, grad
   norm, Adam's first moments, updated parameters, the next temporal state;
 * one optimizer step with ``layer_decay = 0.8`` against optax's.
 """
 
 import dataclasses
-from unittest import mock
 
 import flax.linen as fnn
 import jax
@@ -40,7 +39,6 @@ import far3d_tpu_torch.models.petr as tpetr
 import far3d_tpu_torch.models.streampetr as tsp
 from _torch_port_setup import TOL, to_np
 from far3d_tpu.ops import quant as jq
-from far3d_tpu.train import losses3d as jax_losses3d
 from far3d_tpu.train.optim import make_optimizer as jax_make_optimizer
 from far3d_tpu.train.petr_step import make_petr_train_step
 from far3d_tpu.train.step import TrainState as JaxTrainState
@@ -53,7 +51,6 @@ from far3d_tpu_torch.utils.convert import (petr_from_jax_variables,
                                            petr_init_state_dict,
                                            random_petr_state_dict)
 from far3d_tpu_torch.utils.synthetic import petr_synthetic_batch
-from test_torch_port_train_step import scipy_matcher
 
 
 def random_leaves(shapes, seed):
@@ -441,12 +438,11 @@ def train_runs(petr_pair):
     jt = jsp.init_petr_state(1, jc)
     jbatch = jax_synthetic_batch(_petr_shim(jc), batch=1, seed=6)
     jmetrics = []
-    with mock.patch.object(jax_losses3d, 'hungarian_match', scipy_matcher):
-        step = jax.jit(make_petr_train_step(jc, jtrain))
-        for s in range(STEPS):
-            b = jbatch if s == 0 else jbatch.replace(**SECOND_FRAME)
-            jstate, jt, m = step(jstate, jt, b, key)
-            jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
+    step = jax.jit(make_petr_train_step(jc, jtrain))
+    for s in range(STEPS):
+        b = jbatch if s == 0 else jbatch.replace(**SECOND_FRAME)
+        jstate, jt, m = step(jstate, jt, b, key)
+        jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
 
     model = tsp.StreamPETR(tc)
     model.load_state_dict(petr_from_jax_variables(variables, tc))

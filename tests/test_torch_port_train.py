@@ -4,8 +4,8 @@ module that holds the MSDA kernel, grid mask and DN fed the JAX draws,
 SimOTA and the 2D loss, the 3D set loss with its matching, the optimizer and
 schedule, the flax-semantics BatchNorm and dropout. The whole step is held
 to ``make_train_step`` in tests/test_torch_port_train_step.py. Matching runs
-scipy's exact solver on both sides (the JAX side's ``hungarian_match``
-patched to its host-callback oracle, as tests/test_matching.py:95-105 does).
+the auction on both sides (the port's ``auction_match`` is the JAX
+package's, assignment for assignment: tests/test_torch_port_matching.py).
 Tolerances: 1e-4 where both sides run the same f32 algorithm on one op, the
 composed parity tolerance TOL (rtol 1e-3 / atol 2e-3) through modules and
 losses, exact for integer draws, masks and assignments.
@@ -33,7 +33,6 @@ from far3d_tpu.train import dn as jax_dn
 from far3d_tpu.train import losses3d as jax_losses3d
 from far3d_tpu.train.losses2d import simota_assign as jax_simota
 from far3d_tpu.train.losses2d import yolox_loss as jax_yolox_loss
-from far3d_tpu.train.matching import BIG_COST, hungarian_match_callback
 from far3d_tpu.train.optim import lr_schedule as jax_lr_schedule
 from far3d_tpu.train.optim import make_optimizer as jax_make_optimizer
 from far3d_tpu.utils.synthetic import synthetic_batch as jax_synthetic_batch
@@ -51,17 +50,6 @@ from far3d_tpu_torch.utils.synthetic import ring_cameras
 
 def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
-
-
-def scipy_matcher(cost, col_valid=None):
-    if col_valid is not None:
-        cost = jnp.where(col_valid[..., None, :], cost, BIG_COST)
-    return hungarian_match_callback(cost)
-
-
-def jax_scipy_matching():
-    return mock.patch.multiple(jax_losses3d, hungarian_match=scipy_matcher), \
-        mock.patch.multiple(jax_dn, hungarian_match=scipy_matcher)
 
 
 @pytest.fixture(scope='module')
@@ -300,12 +288,10 @@ def dn_pair(cfgs):
     jax_cfg, port_cfg = cfgs
     jb = jax_synthetic_batch(jax_cfg, batch=2, seed=5)
     key = jax.random.PRNGKey(2)
-    p1, p2 = jax_scipy_matching()
-    with p1, p2:
-        want = jax_dn.build_dn_queries(key, jnp.asarray(jb.gt_boxes),
-                                       jnp.asarray(jb.gt_labels),
-                                       jnp.asarray(jb.gt_mask),
-                                       jax_cfg.head, jax_cfg.pc_range)
+    want = jax_dn.build_dn_queries(key, jnp.asarray(jb.gt_boxes),
+                                   jnp.asarray(jb.gt_labels),
+                                   jnp.asarray(jb.gt_mask),
+                                   jax_cfg.head, jax_cfg.pc_range)
     got = tdn.build_dn(_jax_dn_draws(key, 2, jax_cfg.head),
                        *_t(jb.gt_boxes, jb.gt_labels, jb.gt_mask),
                        port_cfg.head, port_cfg.pc_range)
@@ -459,14 +445,12 @@ def farhead_pair(cfgs, dn_pair):
         return jax_losses3d.farhead_loss(outs, *map(jnp.asarray, gt), jdn, c)
 
     ja = {k: jnp.asarray(v) for k, v in arrays.items()}
-    p1, p2 = jax_scipy_matching()
-    with p1, p2:
-        want = {k: float(v) for k, v in jloss(ja).items()}
-        want_grad = jax.grad(
-            lambda a: sum(jax.tree_util.tree_leaves(jloss(a))))(ja)
-        want_match = jax_losses3d.match_targets(
-            ja['all_cls_scores'][0], ja['all_bbox_preds'][0], jnp.asarray(qv),
-            *map(jnp.asarray, gt), c)
+    want = {k: float(v) for k, v in jloss(ja).items()}
+    want_grad = jax.grad(
+        lambda a: sum(jax.tree_util.tree_leaves(jloss(a))))(ja)
+    want_match = jax_losses3d.match_targets(
+        ja['all_cls_scores'][0], ja['all_bbox_preds'][0], jnp.asarray(qv),
+        *map(jnp.asarray, gt), c)
 
     ta = {k: torch.from_numpy(v).requires_grad_() for k, v in arrays.items()}
     tgt = _t(*gt)

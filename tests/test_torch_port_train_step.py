@@ -7,9 +7,9 @@ of the runner's UseGtDepthHook switch).
 Both sides: dropout rates 0 (the two frameworks draw different bits), the
 grid mask on and the DN noise drawn by the JAX step's own keys
 (``split(fold_in(rng, step), 3)``, step.py:98-99) and handed to the port,
-scipy's Hungarian solver for every matching (the JAX side's
-``hungarian_match`` patched to its host-callback oracle, as
-tests/test_matching.py:95-105 does). Every loss term, the grad norm, every
+the auction for every matching on both sides (the port's
+``auction_match`` is the JAX package's, assignment for assignment:
+tests/test_torch_port_matching.py). Every loss term, the grad norm, every
 updated parameter and YOLOX BN statistic (mapped back with
 ``from_jax_variables``) and the next temporal state agree at the composed
 parity tolerance (rtol 1e-3 / atol 2e-3): f32 on both sides, the sums taken
@@ -17,7 +17,6 @@ in another order.
 """
 
 import dataclasses
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +26,6 @@ import torch
 
 from _torch_port_setup import TOL, make_cfgs, shared_weights, to_np
 from far3d_tpu.models.farhead import init_state as jax_init_state
-from far3d_tpu.train import dn as jax_dn
-from far3d_tpu.train import losses3d as jax_losses3d
-from far3d_tpu.train.matching import BIG_COST, hungarian_match_callback
 from far3d_tpu.train.optim import make_optimizer as jax_make_optimizer
 from far3d_tpu.train.step import TrainState as JaxTrainState
 from far3d_tpu.train.step import make_train_step
@@ -53,18 +49,6 @@ def train_cfgs():
             decoder=dataclasses.replace(cfg.decoder, dropout=0.0,
                                         attn_dropout=0.0)))
     return tuple(out)
-
-
-def scipy_matcher(cost, col_valid=None):
-    if col_valid is not None:
-        cost = jnp.where(col_valid[..., None, :], cost, BIG_COST)
-    return hungarian_match_callback(cost)
-
-
-def scipy_matching():
-    """The JAX package's matching call sites on the scipy oracle."""
-    return mock.patch.multiple(jax_losses3d, hungarian_match=scipy_matcher), \
-        mock.patch.multiple(jax_dn, hungarian_match=scipy_matcher)
 
 
 def jax_step_noise(cfg, key, step):
@@ -106,7 +90,7 @@ def runs(request):
     variables, sd = shared_weights(jax_cfg, port_cfg)
     key = jax.random.PRNGKey(RNG_SEED)
 
-    # JAX: one compiled step, scipy matching
+    # JAX: one compiled step
     params = variables['params']
     jstate = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=params,
@@ -116,13 +100,11 @@ def runs(request):
     jt = jax_init_state(1, jax_cfg.head)
     jbatch = jax_synthetic_batch(jax_cfg, batch=1, seed=6)
     jmetrics = []
-    p1, p2 = scipy_matching()
-    with p1, p2:
-        step = jax.jit(make_train_step(jax_cfg, use_gt_depth=use_gt_depth))
-        for s in range(STEPS):
-            b = jbatch if s == 0 else jbatch.replace(**SECOND_FRAME)
-            jstate, jt, m = step(jstate, jt, b, key)
-            jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
+    step = jax.jit(make_train_step(jax_cfg, use_gt_depth=use_gt_depth))
+    for s in range(STEPS):
+        b = jbatch if s == 0 else jbatch.replace(**SECOND_FRAME)
+        jstate, jt, m = step(jstate, jt, b, key)
+        jmetrics.append({k: float(np.asarray(v)) for k, v in m.items()})
 
     # port
     model = Far3D(port_cfg)
