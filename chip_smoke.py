@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (far3d_tpu_torch) on one NVIDIA card:
 Far3D (phases 1-17), StreamPETR (phase 18), data parallelism and camera
-sharding (phase 19).
+sharding (phase 19), training at scale (phase 20), the JPEG codec and the
+diagnostic and visualization tools (phase 21).
 
     python3 chip_smoke.py
 
@@ -67,7 +68,8 @@ Phases, each raising on failure:
      operations and bytes;
  16. the fourth main path, from a dataset on disk to the AV2 metrics at full
      Far3DConfig() width, in a temporary directory: the full-size learnable
-     dataset (2 scenes x 4 frames, 7 native AV2 cameras, PNG) written;
+     dataset (2 scenes x 4 frames, 7 native AV2 cameras, the JAX writer's
+     q92 JPEG files, through the port's encoder) written;
      TrainLoader (8 threads) feeding run_training for 6 steps with GT depth
      for steps 0-2, log_every 1 and checkpoint_every 4: the steps seen, 6
      finite metrics lines, saves at steps 1, 4 and (forced) 6 with only 6
@@ -126,7 +128,7 @@ Phases, each raising on failure:
      memory, finite losses and grad norm, Adam's moment moved for every
      parameter with a gradient, the pseudo reference points unchanged;
      (e) a learnable nuScenes dataset of 2 scenes x 4 frames, 2 cameras of
-     PNG at 320x800, in a temporary directory through cli.train_nusc (4
+     JPEG at 320x800, in a temporary directory through cli.train_nusc (4
      steps, a checkpoint) and cli.test_nusc on it, bf16 and --quant:
      finite mAP and NDS;
  19. data parallelism and camera sharding (far3d_tpu_torch/parallel/),
@@ -164,10 +166,25 @@ Phases, each raising on failure:
      of each MSDA kernel a step); (c) cli.overfit_full's
      run_closed_loop_full at full width, CLOSED_STEPS steps with the
      switch halfway and one evaluation through EvalLoader, run_inference
-     and the AV2 metrics: finite mAP and CDS, 6 launches of each MSDA
-     kernel a step (msda_fwd also 6 an eval frame).
+     and the AV2 metrics, on the JAX writer's JPEG files: finite mAP and
+     CDS, 6 launches of each MSDA kernel a step (msda_fwd also 6 an eval
+     frame).
+ 21. the JPEG codec and the tools: (a) csrc/jpeg_codec.cpp built with the
+     host's C++ compiler; every golden case of tests/data/jpeg decoded to
+     the sha256 of OpenCV's pixels, and the encodable ones encoded from
+     their source PNG to the sha256 of OpenCV's bytes (digests.json,
+     written by tests/_make_jpeg_cases.py); decode and encode ms of a
+     2048x1550 q92 image on this host; (b) the nine tools of
+     far3d_tpu_torch/cli (eval_recall, its --synthetic curve too,
+     eval_aug_delta, vis_depth_stats, visualize, test_and_visualize,
+     check_img_label, vis_yolox, vis_attention) at full width on phase
+     16's JPEG dataset and checkpoint, visualize_nusc on phase 18e's: each
+     returns, its numbers finite, every file it writes decodes, and each
+     tool that runs the detector launches msda_fwd 6 times a frame it
+     runs; ms a frame of each.
 Then it prints a JSON line of phase 18's other readings, one of phase 19's,
-one of phase 20's, one JSON line of kernels and, last, the device line.
+one of phase 20's, one of phase 21's, one JSON line of kernels and, last,
+the device line.
 It exits non-zero without printing a result when no card is present.
 
 TF32 is switched off for matmuls and cuDNN convolutions, so that every f32
@@ -177,6 +194,7 @@ comparison here is a full-f32 one; the main path's image side is bf16.
 import dataclasses
 import hashlib
 import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -194,6 +212,10 @@ import torch
 import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
+from far3d_tpu_torch.cli import (check_img_label, eval_aug_delta,
+                                 eval_recall, test_and_visualize,
+                                 vis_attention, vis_depth_stats, vis_yolox,
+                                 visualize, visualize_nusc)
 from far3d_tpu_torch.cli import overfit_full as cli_overfit_full
 from far3d_tpu_torch.cli import soak as cli_soak
 from far3d_tpu_torch.cli import test as cli_test
@@ -202,6 +224,8 @@ from far3d_tpu_torch.cli import train_nusc as cli_train_nusc
 from far3d_tpu_torch.config import Far3DConfig, TrainConfig, tiny_test_config
 from far3d_tpu_torch.data import pipeline
 from far3d_tpu_torch.data.av2_dataset import AV2SequenceDataset
+from far3d_tpu_torch.data.image_io import read_image, read_png
+from far3d_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
 from far3d_tpu_torch.entry import (build_model, build_petr_model, entry,
                                    petr_entry, petr_train_entry, run_frame,
@@ -267,6 +291,8 @@ RANK_TIMEOUT_S = 600           # a phase-19 process's limit
 MATCH_STEPS = 8                # phase 20a: steps with each matcher, in turn
 SOAK_RESUME, SOAK_ITERS, SOAK_SWITCH = 8, 30, 15   # phase 20b: cli.soak
 CLOSED_STEPS = 40              # phase 20c: closed-loop steps, then one eval
+TOOL_FRAMES = 2                # phase 21b: frames a tool draws or probes
+JPEG_CASES = Path(__file__).resolve().parent / 'tests' / '_make_jpeg_cases.py'
 MATCH_GAP = 5e-3               # phase 20a: the auction's cost over scipy's
 # Phase 19e: the seven one-camera slices run the towers at batch 1, the
 # unsharded frame at batch 7, so cuDNN may take other algorithms and sum in
@@ -1168,7 +1194,7 @@ def host_pipeline_ms(dataset, cfg, frames):
 def dataset_path(cfg, dev, card, workdir):
     """Phase 16: the dataset-to-metric path at `cfg`'s width. Writes the
     full-size learnable dataset (DATA_SCENES x DATA_FRAMES frames of 7
-    native AV2 cameras, PNG), trains DATA_STEPS steps from TrainLoader
+    native AV2 cameras, JPEG), trains DATA_STEPS steps from TrainLoader
     through run_training across the GT-depth switch with a save at the
     interval and a forced one at the end, restores the last checkpoint into
     a fresh state and holds it bitwise against the live one, resumes to
@@ -1180,7 +1206,7 @@ def dataset_path(cfg, dev, card, workdir):
                                     frames_per_scene=DATA_FRAMES)
     n_frames = DATA_SCENES * DATA_FRAMES
     log(f'  wrote {n_frames} frames x 7 cameras (2048x1550 front, 1550x2048 '
-        f'others, PNG) in {time.perf_counter() - t0:.1f} s')
+        f'others, q92 JPEG) in {time.perf_counter() - t0:.1f} s')
     cfg = cfg.replace(train=dataclasses.replace(
         cfg.train, use_gt_depth_until_iter=DATA_GT_DEPTH_UNTIL,
         checkpoint_every=DATA_SAVE_EVERY, log_every=1, keep_checkpoints=1))
@@ -2033,7 +2059,7 @@ def petr_train_path(card):
 
 def petr_dataset_path(workdir, card):
     """Phase 18e: a learnable nuScenes dataset of 2 scenes x 4 frames, 2
-    cameras of PNG at the model's 320x800, through cli.train_nusc
+    cameras of JPEG at the model's 320x800, through cli.train_nusc
     (PETR_DATA_STEPS steps, full StreamPETRConfig() width) and cli.test_nusc
     on its checkpoint, bf16 and --quant."""
     t0 = time.perf_counter()
@@ -2898,6 +2924,9 @@ def closed_loop_phase(card):
         wall = time.perf_counter() - t0
         n_eval = len(AV2SequenceDataset(f'{tmp}/infos.pkl', tmp, split='val',
                                         seq_split_num=1, test_mode=False))
+        images = sorted(p.suffix for p in Path(tmp).rglob('scene*/cam*/*.*'))
+    if not images or set(images) != {'.jpg'}:
+        raise AssertionError(f'closed loop images {set(images)}: not JPEG')
     if switch != [i < CLOSED_STEPS // 2 for i in range(CLOSED_STEPS)]:
         raise AssertionError(f'GT depth by step {switch}')
     want = {msda_cuda.FWD: LAYERS_PER_FRAME * (CLOSED_STEPS + n_eval),
@@ -2936,6 +2965,141 @@ def phase20(card):
     torch.cuda.empty_cache()
     return {'card': card, 'matching': match, 'soak': soak,
             'closed_loop': closed}
+
+
+# ---------------------------------------------------------------- phase 21
+def _sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def codec_phase(card):
+    """Phase 21a: the golden JPEG cases against OpenCV's digests, decode and
+    encode, then the codec's ms on a 2048x1550 q92 image on this host."""
+    spec = importlib.util.spec_from_file_location('_make_jpeg_cases',
+                                                  JPEG_CASES)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    digests = json.loads((cases.DATA / 'digests.json').read_text())
+    encoded = []
+    for name, (h, w, ch, q, _, _, enc) in sorted(cases.CASES.items()):
+        data = (cases.DATA / f'{name}.jpg').read_bytes()
+        px = decode_jpeg(data)
+        if px.shape != (h, w, 3) or \
+                _sha256(px.tobytes()) != digests[name]['pixels_sha256']:
+            raise AssertionError(f'{name}: decoded pixels differ from '
+                                 'OpenCV\'s')
+        if enc:
+            src = cases.source_of_png(
+                read_png(str(cases.DATA / f'{name}.png')), ch)
+            if _sha256(encode_jpeg(src, q)) != digests[name]['jpeg_sha256']:
+                raise AssertionError(f'{name}: encoded bytes differ from '
+                                     'OpenCV\'s')
+            encoded.append(name)
+    log(f'  {len(cases.CASES)} golden cases decoded to OpenCV\'s pixels, '
+        f'{len(encoded)} encoded to its bytes ({", ".join(encoded)}); codec '
+        f'built with {_build._host_cxx()} in '
+        f'{_build.build_seconds.get("jpeg_codec", 0.0):.2f} s')
+    img = cases.source_image(2048, 1550, 3, seed=0)
+    data = encode_jpeg(img, 92)
+    times = {}
+    for tag, fn in (('decode', lambda: decode_jpeg(data)),
+                    ('encode', lambda: encode_jpeg(img, 92))):
+        fn()
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[tag] = statistics.median(ts)
+    log(f'  2048x1550 q92 ({len(data)} bytes): decode {times["decode"]:.2f} '
+        f'ms, encode {times["encode"]:.2f} ms (host, median of 10) [{card}]')
+    return {'cases': sorted(cases.CASES), 'encoded': encoded,
+            'decode_ms': times['decode'], 'encode_ms': times['encode'],
+            'bytes_2048x1550_q92': len(data)}
+
+
+def _finite(x) -> bool:
+    """Every number in a nest of dicts, lists and tuples is finite (None
+    stands for an empty bin)."""
+    if isinstance(x, dict):
+        return all(_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_finite(v) for v in x)
+    return x is None or bool(np.isfinite(x))
+
+
+def tools_phase(data_dir, nusc_dir, card):
+    """Phase 21b: each tool of far3d_tpu_torch/cli at full width; its
+    numbers finite, its files decoded, msda_fwd 6 times a detector frame."""
+    ann, ckpt = str(data_dir / 'infos.pkl'), str(data_dir / 'work')
+    n_val = len(AV2SequenceDataset(ann, str(data_dir), split='val',
+                                   seq_split_num=1, test_mode=False))
+    common = ['--data-root', str(data_dir), '--ann-file', ann,
+              '--checkpoint', ckpt, '--num-frames', str(TOOL_FRAMES)]
+    nusc = ['--data-root', str(nusc_dir), '--ann-file',
+            str(nusc_dir / 'infos.pkl'), '--checkpoint', str(nusc_dir / 'work'),
+            '--src-wh', str(PETR_DATA_HW[1]), str(PETR_DATA_HW[0]), '--set',
+            'num_cams=2', '--num-frames', str(TOOL_FRAMES)]
+    # (name, run, argv, frames it runs, frames through the detector)
+    plans = [
+        ('eval_recall_synthetic',
+         lambda argv: eval_recall.synthetic_recall_curve(
+             n_frames=TOOL_FRAMES, device='cuda'), [], TOOL_FRAMES, 0),
+        ('eval_recall', eval_recall.run, common, TOOL_FRAMES, TOOL_FRAMES),
+        ('eval_aug_delta', eval_aug_delta.run,
+         ['--work', str(data_dir), '--checkpoint', ckpt, '--full-config',
+          '--seeds', '1'], 2 * n_val, 2 * n_val),
+        ('vis_depth_stats', vis_depth_stats.run, common, TOOL_FRAMES,
+         TOOL_FRAMES),
+        ('visualize', visualize.run, common, n_val, n_val),
+        ('test_and_visualize', test_and_visualize.run,
+         common + ['--max-eval-frames', str(TOOL_FRAMES)], TOOL_FRAMES,
+         TOOL_FRAMES),
+        ('check_img_label', check_img_label.run,
+         ['--data-root', str(data_dir), '--ann-file', ann, '--num-frames',
+          str(TOOL_FRAMES)], TOOL_FRAMES, 0),
+        ('vis_yolox', vis_yolox.run, common, TOOL_FRAMES, TOOL_FRAMES),
+        ('vis_attention', vis_attention.run, common, TOOL_FRAMES,
+         TOOL_FRAMES),
+        ('visualize_nusc', visualize_nusc.run, nusc, TOOL_FRAMES, 0),
+    ]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix='far3d_tools_') as tmp:
+        for name, run, argv, frames, det_frames in plans:
+            out_dir = Path(tmp) / name
+            if name != 'eval_aug_delta' and not name.startswith('eval_recall'):
+                argv = argv + ['--out-dir', str(out_dir)]
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _build.launch_counts.get(msda_cuda.FWD, 0)
+            if launches != LAYERS_PER_FRAME * det_frames:
+                raise AssertionError(
+                    f'{name}: msda_fwd launched {launches} times, expected '
+                    f'{LAYERS_PER_FRAME * det_frames} ({LAYERS_PER_FRAME} a '
+                    f'frame of {det_frames} through the detector)')
+            if result is None or not _finite(result):
+                raise AssertionError(f'{name}: numbers not finite: {result}')
+            files = sorted(p for p in out_dir.rglob('*')
+                           if p.suffix in ('.jpg', '.png'))
+            for f in files:
+                img = read_image(str(f))
+                if img.ndim != 3 or img.shape[2] != 3 or img.size == 0:
+                    raise AssertionError(f'{name}: {f.name} decodes to '
+                                         f'{img.shape}')
+            if name not in ('eval_aug_delta',) and \
+                    not name.startswith('eval_recall') and not files:
+                raise AssertionError(f'{name}: wrote no image')
+            out[name] = {'wall_s': wall, 'frames': frames,
+                         'ms_per_frame': wall * 1e3 / frames,
+                         'launches': launches, 'files': len(files)}
+            log(f'  {name}: {wall:.1f} s, {frames} frames, '
+                f'{wall * 1e3 / frames:.0f} ms a frame, msda_fwd {launches}, '
+                f'{len(files)} files decoded [{card}]')
+            torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -3170,10 +3334,12 @@ def main():
     tiny_petr_train_card_vs_cpu(dev)
     petr_train = petr_train_path(card)
     torch.cuda.empty_cache()
-    log('== phase 18e: a nuScenes PNG dataset -> cli.train_nusc -> '
+    log('== phase 18e: a nuScenes JPEG dataset -> cli.train_nusc -> '
         'cli.test_nusc (bf16, --quant)')
-    with tempfile.TemporaryDirectory(prefix='far3d_nusc_') as tmp:
-        petr_data = petr_dataset_path(Path(tmp), card)
+    # phase 18e's dataset and checkpoint serve phase 21b
+    nusc_tmp = tempfile.TemporaryDirectory(prefix='far3d_nusc_')
+    nusc_dir = Path(nusc_tmp.name)
+    petr_data = petr_dataset_path(nusc_dir, card)
     torch.cuda.empty_cache()
 
     log('== phase 19: data parallelism over torch.distributed and camera '
@@ -3190,7 +3356,6 @@ def main():
         log('== phase 19d: cli.test on two ranks against one, phase 16\'s '
             'dataset')
         dp_d = dp_cli_test(work, data_dir, card)
-    data_tmp.cleanup()
     log('== phase 19e: camera-sharded inference, 7 slices on this card')
     cam = cam_shard_phase(cfg, dev, card, ms_frame)
     torch.cuda.empty_cache()
@@ -3198,6 +3363,16 @@ def main():
     log('== phase 20: training at deployment scale: matching, the soak, '
         'the closed loop')
     p20 = phase20(card)
+
+    log('== phase 21: the JPEG codec on this host, and the diagnostic and '
+        'visualization tools')
+    log('== phase 21a: the codec against OpenCV\'s digests')
+    codec = codec_phase(card)
+    log('== phase 21b: the nine tools at full width on phase 16\'s and 18e\'s '
+        'datasets')
+    tools = tools_phase(data_dir, nusc_dir, card)
+    data_tmp.cleanup()
+    nusc_tmp.cleanup()
     dp_launches = {
         name: {'19a_nccl_world1': dp_a['launches'][name],
                '19b_rank0': dp_b[0]['launches'][name],
@@ -3232,6 +3407,7 @@ def main():
         'name': 'msda_fwd', **common, **petr_launches('msda_fwd'),
         'dp_launches': dp_launches[msda_cuda.FWD],
         'training_launches': p20_launches[msda_cuda.FWD],
+        'tool_launches': {name: t['launches'] for name, t in tools.items()},
         'source': 'far3d_tpu_torch/csrc/msda_fwd.cu',
         'replaces': 'far3d_tpu/ops/msda_pallas.py:150',
         'launches': launches, 'train_launches': train_launches['msda_fwd'],
@@ -3394,6 +3570,8 @@ def main():
         'tiny_dp_vs_one': dp_c, 'cli_test_two_ranks': dp_d,
         'cam_shard': cam}))
     log('Training at scale (phase 20): ' + json.dumps(p20))
+    log('JPEG codec and tools (phase 21): ' + json.dumps(
+        {'codec': codec, 'tools': tools}))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

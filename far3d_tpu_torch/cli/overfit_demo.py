@@ -2,7 +2,8 @@
 metric (the twin of ``tools/overfit_demo.py``).
 
 Overfits the tiny config on the learnable synthetic disk dataset (blob images
-that encode the GT, ``utils/synthetic.py:make_learnable_dataset``, PNG) and
+that encode the GT, ``utils/synthetic.py:make_learnable_dataset``, the JAX
+demo's JPEG files) and
 evaluates the AV2 metrics on the training frames every --eval-every steps. A
 correct training, decoding, matching and metric stack drives mAP towards 1;
 a target-assembly or decode fault caps it. The knobs are the JAX demo's

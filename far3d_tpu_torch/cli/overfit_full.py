@@ -3,7 +3,8 @@
 7 cameras, 644 queries + 256 proposals, DN on, 6 decoder layers, the MSDA
 kernels forward and backward, the auction matching) on the learnable
 synthetic dataset at native AV2 sizes (``utils/synthetic.py:
-make_learnable_dataset_fullsize``, 2 scenes x 8 frames, PNG) and evaluate
+make_learnable_dataset_fullsize``, 2 scenes x 8 frames, the JAX writer's
+q92 JPEG files, decoded by the port's codec) and evaluate
 through the production eval path (``EvalLoader`` -> ``run_inference`` ->
 AV2 metrics) every --eval-every steps.
 

@@ -3,7 +3,8 @@ decode -> match -> nuScenes metric (the twin of
 ``tools/overfit_nusc_demo.py``).
 
 Overfits the tiny StreamPETR config on the learnable synthetic nuScenes
-dataset (``utils/synthetic.py:make_learnable_nusc_dataset``, PNG) and
+dataset (``utils/synthetic.py:make_learnable_nusc_dataset``, the JAX demo's
+JPEG files) and
 evaluates the nuScenes protocol on the training frames every --eval-every
 steps. A correct training, decoding, matching and metric stack drives mAP
 towards 1; a target-assembly, codec or metric fault caps it. The knobs are
@@ -11,7 +12,7 @@ the JAX demo's (lr 2.5e-3, warm-up 50, no grid mask, no EMA, batch 2).
 
     python -m far3d_tpu_torch.cli.overfit_nusc_demo --work /tmp/ovn \\
         --iters 2500 [--eval-every 500] [--seed 0] [--dropout 0]
-        [--image-format jpg] [--device cpu]
+        [--image-format png] [--device cpu]
 
 Writes {work}/curve.jsonl with one {"iter", "mAP", "NDS"} line per eval and
 leaves the final train state in {work}. The exit code holds the curve to the
@@ -54,11 +55,12 @@ def host_config(cfg):
 
 def run_closed_loop_nusc(work, iters, eval_every=500, lr=2.5e-3, batch=2,
                          seed=0, device=None, dropout=None,
-                         image_format='png'):
+                         image_format='jpg'):
     """Build the dataset, train, evaluate every eval_every steps; returns the
     curve [{'iter', 'mAP', 'NDS'}] (also appended to {work}/curve.jsonl).
     `dropout` replaces the tiny config's rate (0.1, the JAX demo's);
-    `image_format` 'jpg' writes the JAX demo's JPEG images (needs OpenCV)."""
+    `image_format` 'png' writes the same images losslessly in place of the
+    JAX demo's JPEG files."""
     from ..data.loader import EvalLoader, TrainLoader
     from ..data.nuscenes_dataset import NuScenesSequenceDataset
     from ..entry import resolve_device
@@ -131,9 +133,9 @@ def main(argv=None):
                          "config's 0.1). Dropout is drawn on the model's "
                          'device, so a seed is another run on another '
                          'device; at 0 the run is drawn alike on all')
-    ap.add_argument('--image-format', choices=('png', 'jpg'), default='png',
-                    help="the dataset's images: png (the port's own codec) or "
-                         "jpg (the JAX demo's, through OpenCV)")
+    ap.add_argument('--image-format', choices=('png', 'jpg'), default='jpg',
+                    help="the dataset's images: jpg (the JAX demo's files) or "
+                         'png (the same pixels, lossless)')
     ap.add_argument('--device', default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run "
                          'on the CPU)')

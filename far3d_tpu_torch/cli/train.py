@@ -6,8 +6,8 @@ tools/train.py + dist_train.sh), one process a card:
     torchrun --nproc_per_node 8 -m far3d_tpu_torch.cli.train ...
 
 Reads ``av2_train_infos.pkl`` from --data-root (or --ann-file); the images
-are decoded by ``data/image_io.py``, which reads PNG and reads other formats
-only through OpenCV where it is installed. Checkpoints and ``metrics.jsonl``
+are decoded by ``data/image_io.py``: JPEG (equal to ``cv2.imread``) and PNG
+through the port's own decoders. Checkpoints and ``metrics.jsonl``
 go to --work-dir; a run there resumes from its latest checkpoint unless
 --no-resume. Under torchrun, Slurm or ``cli/dist_train.sh`` the processes
 train data-parallel (``parallel/mesh.py:init_distributed``), each on its

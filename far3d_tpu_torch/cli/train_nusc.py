@@ -8,10 +8,10 @@
 
 Reads ``nuscenes2d_temporal_infos_train.pkl`` from --data-root (or
 --ann-file) through ``NuScenesSequenceDataset`` and the shared host pipeline
-(PNG through the port's decoder; other formats only where OpenCV is
-installed) and trains through ``train/runner.py``'s loop: a log line every
---log-interval steps, a checkpoint of the whole train state every
---ckpt-interval steps and at the last, a resume from the latest one in
+(JPEG and PNG through the port's own decoders) and trains through
+``train/runner.py``'s loop: a log line every --log-interval steps, a
+checkpoint of the whole train state every --ckpt-interval steps and at the
+last, a resume from the latest one in
 --work-dir unless --no-resume. Under torchrun, Slurm or the ``FAR3D_*``
 variables (``parallel/mesh.py:init_distributed``) the processes train
 data-parallel, each with --batch-size lanes of the global batch, as

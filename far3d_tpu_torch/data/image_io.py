@@ -4,8 +4,9 @@ The host data path of the JAX package calls OpenCV for four things: decoding
 the camera images (``cv2.imread``), resampling each camera once onto the
 model's canvas (``cv2.warpAffine``), and, in the synthetic dataset writers,
 drawing filled circles (``cv2.circle``) and encoding the images
-(``cv2.imwrite``). The machine with the card has no OpenCV and no PIL, so the
-port does these itself:
+(``cv2.imwrite``); its visualization tools draw lines, rectangles, dots and
+text and resize images with OpenCV. The machine with the card has no OpenCV
+and no PIL, so the port does these itself:
 
 * ``write_png`` / ``read_png``: 8-bit RGB PNG. The writer stores rows with
   filter 0 and zlib level 1. The reader decodes all five filter types of
@@ -14,19 +15,26 @@ port does these itself:
   (4) row, as OpenCV's and most encoders write, along anti-diagonals of
   pixels, since those filters predict a byte from its decoded left and
   upper neighbours.
-* ``read_image``: PNG through ``read_png``; any other file through
-  ``cv2.imread``, imported at the call, which raises ``ImportError`` where
-  OpenCV is absent. JPEG is not decoded without OpenCV.
+* ``write_jpeg`` / ``read_image``: baseline JPEG through the port's codec
+  (``data/jpeg.py``), equal bit for bit to ``cv2.imwrite`` at a quality and
+  ``cv2.imread``. ``read_image`` tells PNG from JPEG by the file's first
+  bytes and raises on any other format.
 * ``warp_affine_inverse``: the bilinear warp of
   ``cv2.warpAffine(img, m, (w, h), INTER_LINEAR | WARP_INVERSE_MAP,
   BORDER_CONSTANT, 0)`` for a scale and a shift per axis (all the pipeline
   composes), computed in float32 with torch on the CPU (torch's intra-op
   threads, no interpreter lock held), rows first, then columns.
+* ``resize_linear`` / ``resize_nearest``: ``cv2.resize`` with
+  ``INTER_LINEAR`` (OpenCV's fixed-point uint8 path) and ``INTER_NEAREST``.
 * ``fill_circle``: OpenCV's filled 8-connected circle (``cv2.circle`` with
   thickness -1, ``LINE_8``, no shift), row span for row span.
 * ``fill_poly``: OpenCV's filled polygon (``cv2.fillPoly`` of one contour,
   ``LINE_8``, no shift): the outline's 8-connected lines, then the even-odd
   scanline fill over the edges in OpenCV's 16-bit fixed point.
+* ``draw_rectangle`` (``cv2.rectangle``, ``LINE_8``), ``draw_line_aa``
+  (``cv2.line`` with ``LINE_AA``), ``fill_circle_aa`` (``cv2.circle``
+  filled, ``LINE_AA``) and ``draw_text`` (a small stroke font of the port's
+  own where the tools call ``cv2.putText``).
 
 Images are (H, W, 3) uint8 in BGR order, as OpenCV hands them out.
 """
@@ -144,21 +152,29 @@ def _unfilter_diagonals(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write an (H, W, 3) uint8 BGR (or (H, W) gray) image as baseline JPEG,
+    the bytes of ``cv2.imwrite(path, img, [IMWRITE_JPEG_QUALITY,
+    quality])``."""
+    from .jpeg import encode_jpeg
+    data = encode_jpeg(img, quality)
+    with open(path, 'wb') as f:
+        f.write(data)
+
+
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 BGR of a PNG (own decoder) or, through OpenCV, of any
-    other image file."""
-    if str(path).lower().endswith('.png'):
+    """(H, W, 3) uint8 BGR of a PNG or a JPEG file, told apart by their
+    first bytes; the pixels ``cv2.imread(path, IMREAD_COLOR)`` gives."""
+    with open(path, 'rb') as f:
+        head = f.read(8)
+    if head == _PNG_SIGNATURE:
         return read_png(path)
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            f'{path}: only PNG is decoded without OpenCV (cv2), which is not '
-            'installed here; write the dataset as PNG') from e
-    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img
+    if head[:2] == b'\xff\xd8':
+        from .jpeg import decode_jpeg
+        with open(path, 'rb') as f:
+            return decode_jpeg(f.read())
+    raise ValueError(f'{path}: neither PNG nor JPEG (the two formats the '
+                     'port decodes)')
 
 
 def _taps(coord: torch.Tensor, n: int):
@@ -202,6 +218,15 @@ def warp_affine_inverse(img: np.ndarray, m: np.ndarray,
     return out.round_().clamp_(0, 255).to(torch.uint8).numpy()
 
 
+def _color_value(img: np.ndarray, color: Sequence[float]) -> np.ndarray:
+    """OpenCV's colour for `img`: the first channels of `color`, rounded
+    half to even and saturated to uint8."""
+    n = img.shape[2] if img.ndim == 3 else 1
+    value = np.clip(np.rint(np.asarray(color, np.float64)[:n]), 0, 255)
+    value = value.astype(img.dtype)
+    return value if img.ndim == 3 else value[0]
+
+
 def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int,
                 color: Sequence[float]) -> None:
     """Draw a filled circle in place, pixel for pixel as ``cv2.circle(img,
@@ -209,8 +234,7 @@ def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int,
     spans are filled; the colour rounded half to even and saturated)."""
     cx, cy = center
     h, w = img.shape[:2]
-    value = np.clip(np.rint(np.asarray(color, np.float64)[:img.shape[2]]),
-                    0, 255).astype(img.dtype)
+    value = _color_value(img, color)
 
     def span(y, x1, x2):
         if 0 <= y < h and x1 < w and x2 >= 0:
@@ -231,7 +255,7 @@ def fill_circle(img: np.ndarray, center: Tuple[int, int], radius: int,
         minus -= mask & 2
 
 
-_XY_SHIFT = 16                 # OpenCV's fixed point for polygon edges
+_XY_SHIFT = 16                 # OpenCV's fixed point for edges and AA lines
 
 
 def _line8(img: np.ndarray, p0, p1, value) -> None:
@@ -277,10 +301,7 @@ def fill_poly(img: np.ndarray, points: np.ndarray, color: Sequence[float]
         return
     if (pts < 0).any() or (pts[:, 0] >= w).any() or (pts[:, 1] >= h).any():
         raise ValueError('fill_poly takes vertices inside the image only')
-    value = np.clip(np.rint(np.asarray(color, np.float64)[
-        :(img.shape[2] if img.ndim == 3 else 1)]), 0, 255).astype(img.dtype)
-    if img.ndim == 2:
-        value = value[0]
+    value = _color_value(img, color)
     prev = np.roll(pts, 1, axis=0)
     edges = []                                  # (y0, y1, x at y0, dx)
     for (xa, ya), (xb, yb) in zip(prev.tolist(), pts.tolist()):
@@ -303,3 +324,230 @@ def fill_poly(img: np.ndarray, points: np.ndarray, color: Sequence[float]
         for xl, xr in zip(left, xs[1::2] >> _XY_SHIFT):
             if xl < w and xr >= 0:
                 img[y, max(xl, 0):min(xr, w - 1) + 1] = value
+
+
+def clip_line(size: Tuple[int, int], p0, p1):
+    """``cv2.clipLine((0, 0, w, h), p0, p1)``: the part of the segment
+    inside the image of size (w, h), by OpenCV's integer clipping (each
+    crossing truncated toward zero). Returns (inside, p0, p1)."""
+    w, h = size
+    (x1, y1), (x2, y2) = (int(v) for v in p0), (int(v) for v in p1)
+    right, bottom = w - 1, h - 1
+    if w <= 0 or h <= 0:
+        return False, (x1, y1), (x2, y2)
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _blend(img: np.ndarray, ys, xs, value: np.ndarray, alpha) -> None:
+    """img[ys, xs] moved toward `value` by alpha in [0, 1], rounded."""
+    old = img[ys, xs].astype(np.float32)
+    a = np.asarray(alpha, np.float32).reshape(
+        (-1,) + (1,) * (old.ndim - 1))
+    img[ys, xs] = np.rint(old + (value.astype(np.float32) - old) * a
+                          ).astype(img.dtype)
+
+
+def draw_line_aa(img: np.ndarray, p0, p1, color: Sequence[float],
+                 thickness: int = 1) -> None:
+    """An anti-aliased 1-pixel line in place, where the tools call
+    ``cv2.line(img, p0, p1, color, 1, LINE_AA)``: the segment clipped to the
+    image in OpenCV's 16-bit fixed point (``clip_line`` on the scaled
+    coordinates, as its anti-aliased line clips), then one step a column
+    (or a row, for a steep line) covering the two pixels nearest the exact
+    line by their share of it (Xiaolin Wu's line). OpenCV's own filter
+    covers three pixels a step with other weights: the pixels either
+    changes lie within one pixel of the other's."""
+    if thickness != 1:
+        raise ValueError('draw_line_aa draws 1-pixel lines only')
+    h, w = img.shape[:2]
+    one = 1 << _XY_SHIFT
+    inside, a, b = clip_line((w * one, h * one),
+                             (int(p0[0]) * one, int(p0[1]) * one),
+                             (int(p1[0]) * one, int(p1[1]) * one))
+    if not inside:
+        return
+    (x0, y0), (x1, y1) = ((v / one for v in a)), ((v / one for v in b))
+    value = _color_value(img, color)
+    steep = abs(y1 - y0) > abs(x1 - x0)
+    if steep:
+        x0, y0, x1, y1 = y0, x0, y1, x1
+    if x0 > x1:
+        x0, y0, x1, y1 = x1, y1, x0, y0
+    xs = np.arange(int(np.floor(x0)), int(np.floor(x1)) + 1)
+    slope = (y1 - y0) / (x1 - x0) if x1 != x0 else 0.0
+    ys = y0 + slope * (xs - x0)
+    lo = np.floor(ys).astype(np.int64)
+    frac = (ys - lo).astype(np.float32)
+    limit = w if steep else h
+    for rows, alpha in ((lo, 1.0 - frac), (lo + 1, frac)):
+        keep = (rows >= 0) & (rows < limit) & (alpha > 0)
+        r, c, al = rows[keep], xs[keep], alpha[keep]
+        if steep:
+            _blend(img, c, r, value, al)
+        else:
+            _blend(img, r, c, value, al)
+
+
+def draw_polyline_aa(img: np.ndarray, points, color: Sequence[float],
+                     closed: bool = True) -> None:
+    """``cv2.polylines(img, [points], closed, color, 1, LINE_AA)``: each
+    edge through ``draw_line_aa``."""
+    pts = [tuple(int(v) for v in p) for p in np.asarray(points).reshape(-1, 2)]
+    pairs = list(zip(pts[:-1], pts[1:]))
+    if closed and len(pts) > 1:
+        pairs.append((pts[-1], pts[0]))
+    for a, b in pairs:
+        draw_line_aa(img, a, b, color)
+
+
+def draw_rectangle(img: np.ndarray, p0, p1, color: Sequence[float]) -> None:
+    """``cv2.rectangle(img, p0, p1, color, 1)`` (``LINE_8``) in place,
+    pixel for pixel: the four axis-parallel edges, clipped to the image."""
+    h, w = img.shape[:2]
+    value = _color_value(img, color)
+    (xa, ya), (xb, yb) = (int(v) for v in p0), (int(v) for v in p1)
+    for y in (ya, yb):                                # horizontal edges
+        if 0 <= y < h:
+            lo, hi = max(min(xa, xb), 0), min(max(xa, xb), w - 1)
+            if lo <= hi:
+                img[y, lo:hi + 1] = value
+    for x in (xa, xb):                                # vertical edges
+        if 0 <= x < w:
+            lo, hi = max(min(ya, yb), 0), min(max(ya, yb), h - 1)
+            if lo <= hi:
+                img[lo:hi + 1, x] = value
+
+
+def fill_circle_aa(img: np.ndarray, center: Tuple[int, int], radius: int,
+                   color: Sequence[float]) -> None:
+    """A filled anti-aliased circle in place, where the tools call
+    ``cv2.circle(img, center, radius, color, -1, LINE_AA)``: each pixel
+    moved toward the colour by its coverage, min(1, radius + 0.5 - its
+    distance from the centre) where positive. OpenCV fills a polygon of the
+    circle with an anti-aliased edge: the pixels either changes lie within
+    one pixel of the other's."""
+    h, w = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    r = int(radius)
+    y0, y1 = max(cy - r - 1, 0), min(cy + r + 1, h - 1)
+    x0, x1 = max(cx - r - 1, 0), min(cx + r + 1, w - 1)
+    if y0 > y1 or x0 > x1:
+        return
+    yy, xx = np.mgrid[y0:y1 + 1, x0:x1 + 1]
+    cover = np.clip(r + 0.5 - np.hypot(xx - cx, yy - cy), 0.0, 1.0)
+    keep = cover > 0
+    _blend(img, yy[keep], xx[keep], _color_value(img, color), cover[keep])
+
+
+def _linear_taps(src: int, dst: int):
+    """OpenCV's INTER_LINEAR taps along one axis: the two source indices
+    (clamped into the image) and their 11-bit weights; the weights come
+    from the unclamped position, as its fixed-point path takes them."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, 2048 - w0
+
+
+def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` (``INTER_LINEAR``) of a uint8 image, bit
+    for bit: OpenCV's fixed-point path (11-bit weights; rows summed in int,
+    then columns as its vector code does, each product's top 16 bits, then a
+    rounding shift by 2), and its 2x2 box average for an exact halving."""
+    w, h = size
+    sh, sw = img.shape[:2]
+    src = np.asarray(img)
+    if sh == 2 * h and sw == 2 * w:
+        s = src.astype(np.int32)
+        out = (s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2]
+               + 2) >> 2
+        return out.astype(np.uint8)
+    x0, x1, a0, a1 = _linear_taps(sw, w)
+    y0, y1, b0, b1 = _linear_taps(sh, h)
+    extra = (None,) * (src.ndim - 2)
+    s = src.astype(np.int64)
+    rows = s[:, x0] * a0[(None, slice(None)) + extra] \
+        + s[:, x1] * a1[(None, slice(None)) + extra]
+    col = (slice(None), None) + extra
+    v = (((rows[y0] >> 4) * b0[col]) >> 16) + (((rows[y1] >> 4) * b1[col])
+                                               >> 16)
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_NEAREST)``."""
+    w, h = size
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(
+        np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(
+        np.int64), sh - 1)
+    return np.ascontiguousarray(np.asarray(img)[ys][:, xs])
+
+
+# A small stroke font: each glyph is a list of strokes on a 4 x 6 grid
+# (x right, y down from the top), drawn as anti-aliased lines.
+_GLYPHS = {
+    '0': [(0, 0, 4, 0), (4, 0, 4, 6), (4, 6, 0, 6), (0, 6, 0, 0)],
+    '1': [(2, 0, 2, 6), (1, 1, 2, 0)],
+    '2': [(0, 0, 4, 0), (4, 0, 4, 3), (4, 3, 0, 3), (0, 3, 0, 6),
+          (0, 6, 4, 6)],
+    '3': [(0, 0, 4, 0), (4, 0, 4, 6), (4, 6, 0, 6), (1, 3, 4, 3)],
+    '4': [(0, 0, 0, 3), (0, 3, 4, 3), (4, 0, 4, 6)],
+    '5': [(4, 0, 0, 0), (0, 0, 0, 3), (0, 3, 4, 3), (4, 3, 4, 6),
+          (4, 6, 0, 6)],
+    '6': [(4, 0, 0, 0), (0, 0, 0, 6), (0, 6, 4, 6), (4, 6, 4, 3),
+          (4, 3, 0, 3)],
+    '7': [(0, 0, 4, 0), (4, 0, 1, 6)],
+    '8': [(0, 0, 4, 0), (4, 0, 4, 6), (4, 6, 0, 6), (0, 6, 0, 0),
+          (0, 3, 4, 3)],
+    '9': [(4, 3, 0, 3), (0, 3, 0, 0), (0, 0, 4, 0), (4, 0, 4, 6),
+          (4, 6, 0, 6)],
+    '-': [(0, 3, 4, 3)],
+    '.': [(1, 5, 1, 6), (2, 5, 2, 6)],
+}
+
+
+def draw_text(img: np.ndarray, text: str, org: Tuple[int, int],
+              color: Sequence[float], scale: float = 0.35) -> None:
+    """Digits, '-' and '.' in place with the port's stroke font, where the
+    tools call ``cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale,
+    color, 1, LINE_AA)``: `org` is the bottom-left corner of the text, as
+    there, and a glyph is about as tall as that font's digits at `scale`.
+    Other characters advance without a mark."""
+    unit = max(22.0 * scale / 6.0, 1.0)
+    x, y = float(org[0]), float(org[1]) - 6.0 * unit
+    for ch in text:
+        for ax, ay, bx, by in _GLYPHS.get(ch, ()):
+            draw_line_aa(img, (int(round(x + ax * unit)),
+                               int(round(y + ay * unit))),
+                         (int(round(x + bx * unit)),
+                          int(round(y + by * unit))), color)
+        x += 6.0 * unit

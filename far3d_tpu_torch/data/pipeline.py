@@ -13,8 +13,8 @@ Stages per frame (train_pipeline, far3d.py:175-188):
 
 All randomness comes from a numpy Generator owned by the caller (the streaming
 sampler seeds one per (rank, lane)). Decoding and the one resampling pass per
-camera go through ``image_io`` (the port's own PNG decoder and float32 warp)
-instead of OpenCV; the output has the JAX package's keys and dtypes, with
+camera go through ``image_io`` (the port's own JPEG and PNG decoders and
+float32 warp) instead of OpenCV; the output has the JAX package's keys and dtypes, with
 uint8 images.
 """
 

@@ -15,7 +15,8 @@ probabilities and its output (:141-147), and in the FFN.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +35,13 @@ class DeformableAggregation(nn.Module):
     Per query: `num_pts` key points = the reference point plus learned
     offsets; weights = softmax over (cams x levels x points) per group, with a
     camera embedding of lidar2img[:3, :4] added to the query; bilinear samples
-    from every camera's pyramid, summed over cameras."""
+    from every camera's pyramid, summed over cameras.
+
+    ``capture``: None (the default), or a list to which each call appends
+    {'sampling_loc': (B*N, Q, P, 2) in [0, 1], 'attn_weights': (B*N, Q, G,
+    L, P)}, the tensors the sampler is given (detached views: no copy, no
+    host sync), as the JAX module sows them for the visualization tools
+    (decoder.py:98-102). ``capture_sampling`` sets and clears it."""
 
     def __init__(self, cfg: DeformableAggConfig,
                  spatial_shapes: Sequence[Tuple[int, int]],
@@ -52,6 +59,7 @@ class DeformableAggregation(nn.Module):
             ch, cfg.num_groups * cfg.num_levels * cfg.num_pts)
         self.output_proj = Linear(ch, ch)
         self.sampler = MSDA(spatial_shapes)
+        self.capture: Optional[List[Dict[str, torch.Tensor]]] = None
 
     def forward(self, instance_feature: torch.Tensor,   # (B, Q, C)
                 query_pos: torch.Tensor,                # (B, Q, C)
@@ -85,11 +93,33 @@ class DeformableAggregation(nn.Module):
         loc = uv / torch.tensor([pad_w, pad_h], dtype=uv.dtype,
                                 device=uv.device)
         loc = loc.reshape(b * n, q, p, 2)
+        if self.capture is not None:
+            self.capture.append({'sampling_loc': loc.detach(),
+                                 'attn_weights': w.detach()})
 
         feats = self.sampler(feat_flatten, loc, w)               # (B*N, Q, C)
         feats = feats.reshape(b, n, q, ch).sum(dim=1)
         out = dropout(self.output_proj(feats), c.dropout, train, generator)
         return out + instance_feature
+
+
+@contextlib.contextmanager
+def capture_sampling(model: nn.Module
+                     ) -> Iterator[List[List[Dict[str, torch.Tensor]]]]:
+    """Within the block, every ``DeformableAggregation`` of `model` records
+    its sampling locations and attention weights: yields one list per
+    module, in the model's module order (decoder layer 0 first), each
+    holding one entry per call. The modules' ``capture`` is cleared on
+    leaving, so the main path records nothing."""
+    mods = [m for m in model.modules() if isinstance(m, DeformableAggregation)]
+    lists: List[List[Dict[str, torch.Tensor]]] = [[] for _ in mods]
+    for m, rec in zip(mods, lists):
+        m.capture = rec
+    try:
+        yield lists
+    finally:
+        for m in mods:
+            m.capture = None
 
 
 class SelfAttention(nn.Module):

@@ -7,6 +7,13 @@ and loaded with ``ctypes``. A source may include the headers beside it
 (``csrc/*.cuh``). The library's file name carries a hash of the source, the
 headers and the flags, so an edited source or header is rebuilt and an
 unchanged one is reused. A missing ``nvcc`` or a failed build raises.
+
+Host code of the port (``csrc/<name>.cpp``, such as the JPEG codec) takes the
+same way with the host's C++ compiler (``$CXX``, else ``g++``, else ``c++``:
+the compiler nvcc itself calls on the card's machine) in place of nvcc:
+``load_host_library``. Builds go to a temporary file that is renamed into
+place, so processes that build the same library at once each load a whole
+one.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = ('msda_fwd', 'msda_bwd', 'osa_fused', 'qconv',   # every csrc/<name>.cu
            'ese_requant')
+HOST_SOURCES = ('jpeg_codec',)                        # every csrc/<name>.cpp
+HOST_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -51,6 +60,15 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError('nvcc not found (looked in $CUDA_HOME/bin and PATH); '
                        'the CUDA kernels cannot be built')
+
+
+def _host_cxx() -> str:
+    for cand in (os.environ.get('CXX'), 'g++', 'c++'):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError('no C++ compiler found ($CXX, g++ or c++); the '
+                       "port's host code cannot be built")
 
 
 def _lib_path(name: str) -> pathlib.Path:
@@ -94,6 +112,33 @@ def load_kernel_libraries(*names: str) -> List[ctypes.CDLL]:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return [_libs[name] for name in names]
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host code ``csrc/<name>.cpp``; a failed
+    build raises."""
+    if name in _libs:
+        return _libs[name]
+    src = CSRC / f'{name}.cpp'
+    digest = hashlib.sha256(src.read_bytes()
+                            + ' '.join(HOST_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f'{name}-{digest}.so'
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([_host_cxx(), *HOST_FLAGS, '-o', tmp, str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        build_logs[name] = proc.stdout
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f'C++ build failed for {src}:\n{proc.stdout}')
+        os.replace(tmp, lib_path)
+    _libs[name] = ctypes.CDLL(str(lib_path))
+    return _libs[name]
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:

@@ -13,7 +13,7 @@ carries the JAX package's StreamPETR variables across.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -336,6 +336,46 @@ def from_jax_variables(variables: Dict[str, Any], cfg) -> Dict[str, torch.Tensor
     for ref_key, parts in packed.items():
         out[ref_key] = np.concatenate([parts[i] for i in range(3)], axis=0)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def second_fpn_from_jax_variables(variables: Dict[str, Any],
+                                  upsample_strides: Sequence[float],
+                                  use_conv_for_no_stride: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``SECONDFPN``'s variables (numpy leaves: 'params' and
+    'stats') -> the port ``models/second_fpn.py:SECONDFPN``'s state dict. A
+    flax ``ConvTranspose`` kernel (kh, kw, I, O), which lax applies
+    spatially flipped, is a torch ``ConvTranspose2d`` weight (I, O, kh, kw)
+    flipped back; a flax ``Conv`` kernel a torch (O, I, kh, kw) weight, or,
+    at stride 1 without ``use_conv_for_no_stride``, a kernel-1 deconv's
+    (I, O, 1, 1)."""
+    params, stats = variables['params'], variables.get('stats', {})
+    out: Dict[str, np.ndarray] = {}
+
+    def bn(name, key):
+        out[f'{key}.weight'] = params[name]['scale']
+        out[f'{key}.bias'] = params[name]['bias']
+        out[f'{key}.running_mean'] = stats[name]['mean']
+        out[f'{key}.running_var'] = stats[name]['var']
+
+    for i, s in enumerate(upsample_strides):
+        k = np.asarray(params[f'deblock{i}_conv']['kernel'], np.float32)
+        if s > 1:
+            w = np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+        elif s == 1 and not use_conv_for_no_stride:
+            w = np.transpose(k, (2, 3, 0, 1))
+        else:
+            w = _to_reference(k, 'conv')
+        out[f'deblocks.{i}.0.weight'] = w
+        bn(f'deblock{i}_bn', f'deblocks.{i}.1')
+    if 'final_conv0' in params:
+        out['final_conv.0.weight'] = _to_reference(
+            np.asarray(params['final_conv0']['kernel']), 'conv')
+        bn('final_bn', 'final_conv.1')
+        out['final_conv.3.weight'] = _to_reference(
+            np.asarray(params['final_conv1']['kernel']), 'conv')
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
 
 
 def reference_key_shapes(cfg) -> Dict[str, Tuple[int, ...]]:

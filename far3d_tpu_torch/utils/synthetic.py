@@ -6,8 +6,11 @@ bins, on-disk AV2-format datasets whose images encode their labels, and
 their StreamPETR / nuScenes counterparts.
 
 The writers draw what the JAX package's draw, in the same order from the
-same ``np.random.RandomState``, and write the same infos; the images are PNG
-(``data/image_io.py``) in place of JPEG, with the same filled circles."""
+same ``np.random.RandomState``, and write the same infos and, with their
+default ``image_format='jpg'``, the same JPEG files byte for byte (the
+port's encoder, ``data/jpeg.py``, at the JAX writer's quality);
+``image_format='png'`` writes the same pixels losslessly under ``.png``
+paths."""
 
 from __future__ import annotations
 
@@ -17,7 +20,17 @@ import numpy as np
 import torch
 
 from ..config import Far3DConfig
-from ..data.image_io import fill_circle, write_png
+from ..data.image_io import fill_circle, write_jpeg, write_png
+
+
+def _image_writer(image_format: str, quality: int):
+    """write(path, img) for 'jpg' (at `quality`, the JAX writer's) or
+    'png'."""
+    if image_format == 'jpg':
+        return lambda path, img: write_jpeg(path, img, quality)
+    if image_format == 'png':
+        return write_png
+    raise ValueError(f'image_format {image_format!r}: png or jpg')
 
 
 def ring_cameras(n: int, h: int, w: int, fov_deg: float = 70.0):
@@ -153,7 +166,8 @@ def synthetic_batch(cfg: Far3DConfig, batch: int = 1,
 
 def make_learnable_dataset(info_path: str, root: str, n_scenes: int = 2,
                            frames_per_scene: int = 8, seed: int = 0,
-                           src_hw=(128, 192), n_boxes: int = 4):
+                           src_hw=(128, 192), n_boxes: int = 4,
+                           image_format: str = 'jpg'):
     """On-disk AV2-format dataset whose images *encode* the labels: bright
     blobs at the projected GT box centers, blob size ~ box size / depth.
     Built for the closed-loop train->eval demonstration (the reference's only
@@ -162,11 +176,13 @@ def make_learnable_dataset(info_path: str, root: str, n_scenes: int = 2,
 
     Two cameras (forward +x / backward -x), static boxes per scene in the
     city frame, ego translating +x each frame. Box geometry sits inside the
-    tiny test pc-range (xy within ±10 m, z in [1, 3]).
+    tiny test pc-range (xy within ±10 m, z in [1, 3]). JPEG at quality 95
+    (OpenCV's default, as the JAX writer's ``cv2.imwrite``), or PNG.
     """
     import os
     import pickle
 
+    write = _image_writer(image_format, 95)
     rng = np.random.RandomState(seed)
     sh, sw = src_hw
     f = 150.0
@@ -233,7 +249,7 @@ def make_learnable_dataset(info_path: str, root: str, n_scenes: int = 2,
                 ego_cam[:3, :3] = cam_rots[c]
                 ego_cam[:3, 3] = cam_t
                 cam_infos[f'cam{c}'] = dict(
-                    fpath=f'scene{s}/cam{c}/{fi}.png',
+                    fpath=f'scene{s}/cam{c}/{fi}.{image_format}',
                     intrinsics=intr3.copy(),
                     ego_SE3_cam=ego_cam,
                     city_SE3_ego_cam_t=ego.copy(),
@@ -280,7 +296,7 @@ def make_learnable_dataset(info_path: str, root: str, n_scenes: int = 2,
                 g2d_depths.append(np.asarray(dp, np.float32))
                 path = os.path.join(os_root, cam_infos[f'cam{c}']['fpath'])
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-                write_png(path, img)
+                write(path, img)
             infos.append(dict(
                 scene_id=f'scene{s}',
                 lidar_timestamp_ns=fi * int(1e8),
@@ -309,7 +325,8 @@ def make_learnable_dataset_fullsize(info_path: str, root: str,
                                     n_scenes: int = 2,
                                     frames_per_scene: int = 8, seed: int = 0,
                                     n_cams: int = 7, boxes_per_cam: int = 2,
-                                    depth_range=(12.0, 32.0)):
+                                    depth_range=(12.0, 32.0),
+                                    image_format: str = 'jpg'):
     """Production-scale twin of `make_learnable_dataset` for the FULL-SIZE
     on-chip closed loop (tools/overfit_full.py): 7 ring cameras at native AV2
     resolutions (portrait 2048x1550 front camera + six landscape 1550x2048,
@@ -317,12 +334,13 @@ def make_learnable_dataset_fullsize(info_path: str, root: str,
     12-32 m, depth encoded in blob shade, class in color, scene identity in
     the background fingerprint. Exercises the real host pipeline (portrait
     pre-rotation, resize/crop, LID depth painting at production bins) and the
-    production model shapes end to end.
+    production model shapes end to end. JPEG at quality 92, as the JAX
+    writer's, or PNG.
     """
-    import os
     import os
     import pickle
 
+    write = _image_writer(image_format, 92)
     rng = np.random.RandomState(seed)
     f = 1700.0
     cam_t = np.array([0.0, 0.0, 1.5])
@@ -387,7 +405,7 @@ def make_learnable_dataset_fullsize(info_path: str, root: str,
                 ego_cam[:3, :3] = rot
                 ego_cam[:3, 3] = cam_t
                 cam_infos[f'cam{c}'] = dict(
-                    fpath=f'scene{s}/cam{c}/{fi}.png',
+                    fpath=f'scene{s}/cam{c}/{fi}.{image_format}',
                     intrinsics=intr3.copy(),
                     ego_SE3_cam=ego_cam,
                     city_SE3_ego_cam_t=ego.copy(),
@@ -428,7 +446,7 @@ def make_learnable_dataset_fullsize(info_path: str, root: str,
                 g2d_depths.append(np.asarray(dp, np.float32))
                 path = os.path.join(root, cam_infos[f'cam{c}']['fpath'])
                 os.makedirs(os.path.dirname(path), exist_ok=True)
-                write_png(path, img)
+                write(path, img)
             infos.append(dict(
                 scene_id=f'scene{s}',
                 lidar_timestamp_ns=fi * int(1e8),
@@ -484,7 +502,7 @@ def petr_synthetic_batch(cfg, batch: int = 1, seed: int = 0,
 def make_learnable_nusc_dataset(info_path: str, root: str, n_scenes: int = 2,
                                 frames_per_scene: int = 8, seed: int = 0,
                                 src_hw=(64, 96), n_boxes: int = 4,
-                                image_format: str = 'png'):
+                                image_format: str = 'jpg'):
     """nuScenes-format twin of ``make_learnable_dataset`` for the StreamPETR
     closed loop (synthetic.py:342-452): an info pkl in StreamPETR's layout
     and blob images whose appearance encodes the GT (position by
@@ -494,19 +512,12 @@ def make_learnable_nusc_dataset(info_path: str, root: str, n_scenes: int = 2,
     (CAM_FRONT +x, CAM_BACK -x), lidar2ego the identity, the ego moving +x,
     constant global velocities per box; boxes stored 9-dim (x, y,
     z_bottom, w, l, h, yaw, vx, vy) as the StreamPETR infos carry them.
-    The draws are the JAX writer's; the images are PNG with the same
-    filled circles, or with `image_format` 'jpg' the JAX writer's JPEG
-    files (``cv2.imwrite``; OpenCV must be installed)."""
+    The draws are the JAX writer's; the images are its JPEG files (quality
+    95) or, with `image_format` 'png', the same filled circles losslessly."""
     import os
     import pickle
 
-    if image_format == 'jpg':
-        import cv2
-        write = cv2.imwrite
-    elif image_format == 'png':
-        write = write_png
-    else:
-        raise ValueError(f'image_format {image_format!r}: png or jpg')
+    write = _image_writer(image_format, 95)
 
     rng = np.random.RandomState(seed)
     sh, sw = src_hw

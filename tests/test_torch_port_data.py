@@ -14,9 +14,10 @@
 * ``data/av2_dataset.py``, ``sampler.py``, ``loader.py``: identical records
   and index streams, and the same batches key by key from both packages'
   loaders over one PNG dataset on disk.
-* ``utils/synthetic.py``'s learnable dataset writers: the same infos as the
-  JAX writers (paths aside: .png for .jpg), images within 8 levels at every
-  GT's centre (JPEG's error).
+* ``utils/synthetic.py``'s learnable dataset writers: with PNG the same
+  infos as the JAX writers (paths aside: .png for .jpg), images within 8
+  levels at every GT's centre (JPEG's error); with their default JPEG the
+  JAX writers' infos and files byte for byte.
 * ``eval/av2_metrics.py``: equal results on tests/test_eval_metrics.py's
   cases.
 """
@@ -154,9 +155,15 @@ def test_png_reader_decodes_cv2_adaptive_filters(tmp_path, filters):
 
 
 def test_read_image_without_opencv_names_it(tmp_path, monkeypatch):
+    """Without OpenCV importable, ``read_image`` of a JPEG gives the pixels
+    ``cv2.imread`` gives (the port's own decoder)."""
+    img = np.random.RandomState(4).randint(0, 256, (45, 67, 3)).astype(
+        np.uint8)
+    path = str(tmp_path / 'a.jpg')
+    cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, 92])
+    want = cv2.imread(path, cv2.IMREAD_COLOR)
     monkeypatch.setitem(sys.modules, 'cv2', None)
-    with pytest.raises(ImportError, match='PNG'):
-        image_io.read_image(str(tmp_path / 'a.jpg'))
+    np.testing.assert_array_equal(image_io.read_image(path), want)
 
 
 def test_fill_circle_matches_cv2():
@@ -369,7 +376,8 @@ def test_eval_loader_matches_jax(png_dataset):
 def test_learnable_dataset_writer_matches_jax(tmp_path, writer, kw):
     jroot, troot = tmp_path / 'jax', tmp_path / 'port'
     want = getattr(jsynth, writer)(str(jroot / 'i.pkl'), str(jroot), **kw)
-    got = getattr(tsynth, writer)(str(troot / 'i.pkl'), str(troot), **kw)
+    got = getattr(tsynth, writer)(str(troot / 'i.pkl'), str(troot),
+                                  image_format='png', **kw)
     with open(troot / 'i.pkl', 'rb') as f:
         assert len(pickle.load(f)['infos']) == len(want)
 
@@ -403,6 +411,25 @@ def test_learnable_dataset_writer_matches_jax(tmp_path, writer, kw):
                 assert np.abs(a - b).max() <= JPEG_LEVELS, (cam['fpath'], a, b)
                 checked += 1
     assert checked > 0
+
+
+@pytest.mark.parametrize('writer,kw', [
+    ('make_learnable_dataset', {}),
+    ('make_learnable_dataset_fullsize', dict(n_scenes=1, frames_per_scene=1)),
+    ('make_learnable_nusc_dataset', dict(frames_per_scene=3))])
+def test_learnable_writers_default_jpeg_is_jax(tmp_path, writer, kw):
+    """With the default image format every writer is the JAX one: the info
+    pickle and every image file equal byte for byte (the port's encoder at
+    the JAX writer's quality, 95 or 92)."""
+    jroot, troot = tmp_path / 'jax', tmp_path / 'port'
+    getattr(jsynth, writer)(str(jroot / 'i.pkl'), str(jroot), **kw)
+    getattr(tsynth, writer)(str(troot / 'i.pkl'), str(troot), **kw)
+    assert (troot / 'i.pkl').read_bytes() == (jroot / 'i.pkl').read_bytes()
+    files = sorted(p.relative_to(jroot) for p in jroot.rglob('*.jpg'))
+    assert files and files == sorted(p.relative_to(troot)
+                                     for p in troot.rglob('*.jpg'))
+    for rel in files:
+        assert (troot / rel).read_bytes() == (jroot / rel).read_bytes(), rel
 
 
 # -------------------------------------------------------------- AV2 metrics

@@ -5,6 +5,7 @@ CPU."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -47,6 +48,36 @@ def test_data_tools_load_neither_jax_nor_pandas():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# The import lines a search of the port's source must not find, at any
+# indentation (an import inside a function included).
+_IMPORT_LINE = re.compile(r'^\s*(import|from) (cv2|jax|flax|far3d_tpu)\b',
+                          re.MULTILINE)
+
+
+def test_tools_and_codec_load_no_jax_opencv_or_matplotlib():
+    """The tools, their drawing and the JPEG codec run where the card is,
+    which has none of jax, OpenCV, PIL or matplotlib."""
+    forbidden = FORBIDDEN + ('cv2', 'PIL', 'matplotlib')
+    mods = ', '.join(f'far3d_tpu_torch.cli.{m}' for m in TOOLS) + \
+        ', far3d_tpu_torch.data.jpeg, far3d_tpu_torch.utils.vis, ' \
+        'far3d_tpu_torch.models.second_fpn'
+    code = (f'import sys, {mods}; '
+            'from far3d_tpu_torch.data import jpeg; '
+            'import numpy as np; '
+            'assert jpeg.decode_jpeg(jpeg.encode_jpeg('
+            'np.zeros((8, 8, 3), np.uint8))).shape == (8, 8, 3); '
+            f'bad = [m for m in sys.modules if m.split(".")[0] in {forbidden!r}]; '
+            'print(bad); sys.exit(1 if bad else 0)')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+TOOLS = ('eval_recall', 'eval_aug_delta', 'vis_depth_stats', 'visualize',
+         'visualize_nusc', 'test_and_visualize', 'check_img_label',
+         'vis_yolox', 'vis_attention')
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -63,8 +94,13 @@ def _imported_roots(path):
     + ['chip_smoke.py', 'tools/profile_torch_port.py',
        'tools/micro_osa_torch.py']))
 def test_source_imports_no_jax(path):
+    """Neither jax, the JAX package nor OpenCV, by the syntax tree (every
+    import statement, nested ones included) and by the source text."""
     roots = set(_imported_roots(ROOT / path))
-    assert not roots & set(FORBIDDEN), (path, sorted(roots & set(FORBIDDEN)))
+    bad = set(FORBIDDEN) | {'cv2'}
+    assert not roots & bad, (path, sorted(roots & bad))
+    lines = _IMPORT_LINE.findall((ROOT / path).read_text())
+    assert not lines, (path, lines)
 
 
 def test_entry_without_a_card_raises(monkeypatch):
@@ -225,6 +261,27 @@ def test_run_inference_without_a_card_raises(monkeypatch):
     ('overfit_nusc_demo', ['--work', 'missing', '--iters', '1']),
     ('quant_accuracy_nusc', ['--work', 'missing', '--iters', '1'])])
 def test_cli_without_a_card_raises(monkeypatch, tmp_path, cli, argv):
+    import importlib
+    main = importlib.import_module(f'far3d_tpu_torch.cli.{cli}').main
+    monkeypatch.chdir(tmp_path)
+    with _no_card(monkeypatch):
+        main(argv)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize('cli,argv', [
+    ('eval_recall', ['--synthetic']),
+    ('eval_recall', ['--data-root', 'missing', '--checkpoint', 'missing']),
+    ('eval_aug_delta', ['--work', 'missing']),
+    ('vis_depth_stats', ['--data-root', 'missing']),
+    ('visualize', ['--data-root', 'missing', '--checkpoint', 'missing']),
+    ('visualize_nusc', ['--data-root', 'missing', '--random-init']),
+    ('test_and_visualize', ['--data-root', 'missing']),
+    ('vis_yolox', ['--data-root', 'missing']),
+    ('vis_attention', ['--data-root', 'missing'])])
+def test_tool_without_a_card_raises(monkeypatch, tmp_path, cli, argv):
+    """A tool that runs the model asks for the card unless --device says
+    otherwise, before it reads or writes anything."""
     import importlib
     main = importlib.import_module(f'far3d_tpu_torch.cli.{cli}').main
     monkeypatch.chdir(tmp_path)

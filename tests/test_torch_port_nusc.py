@@ -183,7 +183,8 @@ def test_learnable_nusc_writer_matches_jax(tmp_path, monkeypatch):
         want = jsynth.make_learnable_nusc_dataset(str(jroot / 'i.pkl'),
                                                   str(jroot), **kw)
     got = tsynth.make_learnable_nusc_dataset(str(troot / 'i.pkl'),
-                                             str(troot), **kw)
+                                             str(troot), image_format='png',
+                                             **kw)
     paths = []
     for w in want:
         for cam in w['cams'].values():
