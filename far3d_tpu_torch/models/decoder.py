@@ -25,6 +25,7 @@ from torch import nn
 from ..config import DecoderConfig, DeformableAggConfig
 from ..geometry import denormalize_from_pc_range, project_to_image
 from ..ops.msda import MSDA
+from ..utils.spans import span
 from .layers import FFN, Linear, dropout
 
 
@@ -231,8 +232,9 @@ class Decoder(nn.Module):
                 generator: Optional[torch.Generator] = None):
         intermediates = []
         for layer in self.layers:
-            query = layer(query, query_pos, feat_flatten, temp_memory,
-                          temp_pos, reference_points, lidar2img, attn_mask,
-                          train, generator)
+            with span('model.decoder.layer'):
+                query = layer(query, query_pos, feat_flatten, temp_memory,
+                              temp_pos, reference_points, lidar2img,
+                              attn_mask, train, generator)
             intermediates.append(query)
         return torch.stack(intermediates)

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..config import Far3DConfig
 from ..geometry import denormalize_bbox
+from ..utils.spans import span
 from .farhead import FarHead, TemporalState
 from .heads2d import YoloxHead2D, select_proposals
 from .vovnet import FPN, VoVNet
@@ -69,8 +70,9 @@ class Far3D(nn.Module):
         ``ops/quant.py`` (``quantize_detector_backbone``), replaces the bf16
         backbone with the int8 one: the serving mode."""
         b, n = images.shape[:2]
-        feats, outs2d = camera_towers(self, normalize_images(images, self.cfg),
-                                      train, quant_backbone)
+        with span('model.backbone'):
+            x = normalize_images(images, self.cfg)
+        feats, outs2d = camera_towers(self, x, train, quant_backbone)
         return self.forward_head(
             feats, outs2d, b, n, lidar2img, intrinsics, extrinsics, state,
             prev_exists, timestamp, ego_pose, ego_pose_inv, gt_depth_bins,
@@ -85,15 +87,16 @@ class Far3D(nn.Module):
         the joint top-K proposals, FarHead and its decoder over all cameras.
         `feats` and `outs2d` hold the b * n images camera-minor."""
         cfg = self.cfg
-        proposals = select_proposals(outs2d, b, n, cfg.strides,
-                                     cfg.roi2d.num_proposals_2d,
-                                     cfg.roi2d.threshold_score)
-        dl = outs2d['depth_logit']
-        depth_probs = dl.softmax(dim=-1).reshape(b, n, -1, dl.shape[-1])
+        with span('model.queries'):
+            proposals = select_proposals(outs2d, b, n, cfg.strides,
+                                         cfg.roi2d.num_proposals_2d,
+                                         cfg.roi2d.threshold_score)
+            dl = outs2d['depth_logit']
+            depth_probs = dl.softmax(dim=-1).reshape(b, n, -1, dl.shape[-1])
 
-        feat_flatten = torch.cat(
-            [f.permute(0, 2, 3, 1).reshape(b * n, -1, f.shape[1])
-             for f in feats], dim=1)
+            feat_flatten = torch.cat(
+                [f.permute(0, 2, 3, 1).reshape(b * n, -1, f.shape[1])
+                 for f in feats], dim=1)
 
         head_out = self.pts_bbox_head(
             feat_flatten, lidar2img, intrinsics, extrinsics, state,
@@ -126,17 +129,20 @@ def camera_towers(towers: nn.Module, x: torch.Tensor, train: bool = False,
     head and the depth net of `towers` (a ``Far3D``, or a replica holding
     its ``img_backbone``, ``img_neck`` and ``img_roi_head``). Returns
     (4 x (BN, C, Hl, Wl) features, the 2D head's maps)."""
-    if quant_backbone is not None:
-        # int8 serving path: NHWC int8 from the normalized images
-        from ..ops.quant import quant_vovnet_forward, quantize_input
-        stages = quant_vovnet_forward(
-            towers.img_backbone.cfg, quant_backbone,
-            quantize_input(x, quant_backbone['s0']))
-    else:
-        # NHWC -> NCHW shape; on the card this is channels_last in memory
-        stages = towers.img_backbone(x.permute(0, 3, 1, 2))
-    feats = towers.img_neck(stages)                      # 4 x (BN, C, Hl, Wl)
-    return feats, towers.img_roi_head(feats, train)
+    with span('model.backbone'):
+        if quant_backbone is not None:
+            # int8 serving path: NHWC int8 from the normalized images
+            from ..ops.quant import quant_vovnet_forward, quantize_input
+            stages = quant_vovnet_forward(
+                towers.img_backbone.cfg, quant_backbone,
+                quantize_input(x, quant_backbone['s0']))
+        else:
+            # NHWC -> NCHW shape; on the card this is channels_last in memory
+            stages = towers.img_backbone(x.permute(0, 3, 1, 2))
+    with span('model.neck'):
+        feats = towers.img_neck(stages)                  # 4 x (BN, C, Hl, Wl)
+    with span('model.head2d'):
+        return feats, towers.img_roi_head(feats, train)
 
 
 def decode_detections(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,

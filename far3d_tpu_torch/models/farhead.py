@@ -30,6 +30,7 @@ from ..geometry import (denormalize_from_pc_range, inverse_sigmoid,
                         lid_bin_to_depth, nerf_positional_encoding,
                         normalize_to_pc_range, pos2posemb1d, pos2posemb3d,
                         transform_points, unproject_to_lidar)
+from ..utils.spans import span
 from .decoder import Decoder
 from .layers import MLN, MLP, Linear
 
@@ -289,108 +290,121 @@ class FarHead(nn.Module):
         b = lidar2img.shape[0]
         n = bn // b
 
-        state = pre_update_memory_fn(
-            state, prev_exists, timestamp, ego_pose_inv,
-            self.pseudo_reference_points.weight, c.num_propagated,
-            self.pc_range)
+        with span('model.queries'):
+            state = pre_update_memory_fn(
+                state, prev_exists, timestamp, ego_pose_inv,
+                self.pseudo_reference_points.weight, c.num_propagated,
+                self.pc_range)
 
-        # spatial alignment over the flattened features (farhead.py:553-565):
-        # condition = [fx/1e3, fy/1e3, extrinsics[:3, :4]] (14 dims)
-        intr = intrinsics / 1e3
-        mln_in = torch.cat([intr[..., 0, 0:1], intr[..., 1, 1:2],
-                            extrinsics[..., :3, :].reshape(b, n, 12)], dim=-1)
-        feat_flatten = self.spatial_alignment(
-            feat_flatten, mln_in.reshape(bn, 1, 14).to(feat_flatten.dtype))
+            # spatial alignment over the flattened features
+            # (farhead.py:553-565): condition = [fx/1e3, fy/1e3,
+            # extrinsics[:3, :4]] (14 dims)
+            intr = intrinsics / 1e3
+            mln_in = torch.cat([intr[..., 0, 0:1], intr[..., 1, 1:2],
+                                extrinsics[..., :3, :].reshape(b, n, 12)],
+                               dim=-1)
+            feat_flatten = self.spatial_alignment(
+                feat_flatten, mln_in.reshape(bn, 1, 14).to(feat_flatten.dtype))
 
-        # --- query set: [DN, learned, 2D proposals, propagated] -----------
-        pad_size = 0 if dn_ref_points is None else dn_ref_points.shape[1]
-        reference_points = self.reference_points.weight[None].expand(
-            b, c.num_query, 3)
-        if pad_size:
-            reference_points = torch.cat(
-                [dn_ref_points.to(reference_points.dtype), reference_points],
-                dim=1)
-        k2d, ctx2d = 0, None
-        if c.add_query_from_2d and proposals is not None:
-            ref2d, ctx2d, prop_valid = build_query2d_proposals(
-                proposals, depth_probs,
-                feat_flatten.reshape(b, n, l_total, ch), lidar2img,
-                self.pad_hw, self.depthnet, c.multi_depth, self.pc_range,
-                self.threshold_2d, gt_depth_bins, use_gt_depth)
-            k2d = ref2d.shape[1]
-            reference_points = torch.cat(
-                [reference_points, ref2d.to(reference_points.dtype)], dim=1)
-        else:
-            prop_valid = torch.zeros(b, 0, dtype=torch.bool,
-                                     device=feat_flatten.device)
+            # --- query set: [DN, learned, 2D proposals, propagated] -------
+            pad_size = 0 if dn_ref_points is None else dn_ref_points.shape[1]
+            reference_points = self.reference_points.weight[None].expand(
+                b, c.num_query, 3)
+            if pad_size:
+                reference_points = torch.cat(
+                    [dn_ref_points.to(reference_points.dtype),
+                     reference_points], dim=1)
+            k2d, ctx2d = 0, None
+            if c.add_query_from_2d and proposals is not None:
+                ref2d, ctx2d, prop_valid = build_query2d_proposals(
+                    proposals, depth_probs,
+                    feat_flatten.reshape(b, n, l_total, ch), lidar2img,
+                    self.pad_hw, self.depthnet, c.multi_depth, self.pc_range,
+                    self.threshold_2d, gt_depth_bins, use_gt_depth)
+                k2d = ref2d.shape[1]
+                reference_points = torch.cat(
+                    [reference_points, ref2d.to(reference_points.dtype)],
+                    dim=1)
+            else:
+                prop_valid = torch.zeros(b, 0, dtype=torch.bool,
+                                         device=feat_flatten.device)
 
-        query_pos = self.query_embedding(pos2posemb3d(reference_points))
-        tgt = torch.zeros_like(query_pos)
-        if ctx2d is not None:
-            ctx_emb = self.context_embed(ctx2d.to(tgt.dtype))
-            tgt = torch.cat([tgt[:, :pad_size + c.num_query], ctx_emb], dim=1)
+            query_pos = self.query_embedding(pos2posemb3d(reference_points))
+            tgt = torch.zeros_like(query_pos)
+            if ctx2d is not None:
+                ctx_emb = self.context_embed(ctx2d.to(tgt.dtype))
+                tgt = torch.cat([tgt[:, :pad_size + c.num_query], ctx_emb],
+                                dim=1)
 
-        # --- temporal alignment (farhead.py:284-313) ------------------------
-        temp_ref_norm = normalize_to_pc_range(state.ref_points, self.pc_range)
-        temp_pos = self.query_embedding(pos2posemb3d(temp_ref_norm))
-        temp_memory = state.embedding
-        if c.with_ego_pos:
-            nq_cur = reference_points.shape[1]
-            rec_motion = torch.cat([
-                torch.zeros_like(reference_points[..., :3]),
-                torch.eye(4, dtype=tgt.dtype, device=tgt.device)[:3, :]
-                .reshape(1, 1, 12).expand(b, nq_cur, 12)], dim=-1)
-            rec_motion = nerf_positional_encoding(rec_motion.to(tgt.dtype))
-            tgt = self.ego_pose_memory(tgt, rec_motion)
-            query_pos = self.ego_pose_pe(query_pos, rec_motion)
-            mem_motion = torch.cat(
-                [state.velo, state.timestamp,
-                 state.egopose[..., :3, :].reshape(b, c.memory_len, 12)],
-                dim=-1)
-            mem_motion = nerf_positional_encoding(mem_motion.to(tgt.dtype))
-            temp_pos = self.ego_pose_pe(temp_pos, mem_motion)
-            temp_memory = self.ego_pose_memory(temp_memory, mem_motion)
+            # --- temporal alignment (farhead.py:284-313) --------------------
+            temp_ref_norm = normalize_to_pc_range(state.ref_points,
+                                                  self.pc_range)
+            temp_pos = self.query_embedding(pos2posemb3d(temp_ref_norm))
+            temp_memory = state.embedding
+            if c.with_ego_pos:
+                nq_cur = reference_points.shape[1]
+                rec_motion = torch.cat([
+                    torch.zeros_like(reference_points[..., :3]),
+                    torch.eye(4, dtype=tgt.dtype, device=tgt.device)[:3, :]
+                    .reshape(1, 1, 12).expand(b, nq_cur, 12)], dim=-1)
+                rec_motion = nerf_positional_encoding(rec_motion.to(tgt.dtype))
+                tgt = self.ego_pose_memory(tgt, rec_motion)
+                query_pos = self.ego_pose_pe(query_pos, rec_motion)
+                mem_motion = torch.cat(
+                    [state.velo, state.timestamp,
+                     state.egopose[..., :3, :].reshape(b, c.memory_len, 12)],
+                    dim=-1)
+                mem_motion = nerf_positional_encoding(mem_motion.to(tgt.dtype))
+                temp_pos = self.ego_pose_pe(temp_pos, mem_motion)
+                temp_memory = self.ego_pose_memory(temp_memory, mem_motion)
 
-        query_pos = query_pos + self.time_embedding(
-            pos2posemb1d(torch.zeros_like(reference_points[..., :1])))
-        temp_pos = temp_pos + self.time_embedding(pos2posemb1d(state.timestamp))
+            query_pos = query_pos + self.time_embedding(
+                pos2posemb1d(torch.zeros_like(reference_points[..., :1])))
+            temp_pos = temp_pos + self.time_embedding(
+                pos2posemb1d(state.timestamp))
 
-        # append the propagated queries (farhead.py:305-311)
-        np_ = c.num_propagated
-        if np_ > 0:
-            tgt = torch.cat([tgt, temp_memory[:, :np_]], dim=1)
-            query_pos = torch.cat([query_pos, temp_pos[:, :np_]], dim=1)
-            reference_points = torch.cat(
-                [reference_points, temp_ref_norm[:, :np_]], dim=1)
-            temp_memory = temp_memory[:, np_:]
-            temp_pos = temp_pos[:, np_:]
+            # append the propagated queries (farhead.py:305-311)
+            np_ = c.num_propagated
+            if np_ > 0:
+                tgt = torch.cat([tgt, temp_memory[:, :np_]], dim=1)
+                query_pos = torch.cat([query_pos, temp_pos[:, :np_]], dim=1)
+                reference_points = torch.cat(
+                    [reference_points, temp_ref_norm[:, :np_]], dim=1)
+                temp_memory = temp_memory[:, np_:]
+                temp_pos = temp_pos[:, np_:]
 
-        attn_mask = build_attn_mask(
-            pad_size, c.dn_max_gt * c.num_smp_per_gt, c.num_query, k2d, np_,
-            temp_memory.shape[1], prop_valid, dn_valid)
+            attn_mask = build_attn_mask(
+                pad_size, c.dn_max_gt * c.num_smp_per_gt, c.num_query, k2d,
+                np_, temp_memory.shape[1], prop_valid, dn_valid)
 
-        outs_dec = self.transformer['decoder'](
-            tgt, query_pos, feat_flatten, temp_memory, temp_pos,
-            reference_points, lidar2img, attn_mask, train, generator)
-        outs_dec = torch.nan_to_num(outs_dec.float())
+        with span('model.decoder'):
+            outs_dec = self.transformer['decoder'](
+                tgt, query_pos, feat_flatten, temp_memory, temp_pos,
+                reference_points, lidar2img, attn_mask, train, generator)
+            outs_dec = torch.nan_to_num(outs_dec.float())
 
-        all_cls = self.cls_branches[0](outs_dec)              # (Lyr, B, Q, ncls)
-        tmp = self.reg_branches[0](outs_dec)                  # (Lyr, B, Q, code)
-        ref_logit = inverse_sigmoid(reference_points.float())
-        xyz = torch.sigmoid(tmp[..., :3] + ref_logit[None])
-        xyz = denormalize_from_pc_range(xyz, self.pc_range)
-        all_bbox = torch.cat([xyz, tmp[..., 3:]], dim=-1)
+        with span('model.branches'):
+            all_cls = self.cls_branches[0](outs_dec)          # (Lyr, B, Q, ncls)
+            tmp = self.reg_branches[0](outs_dec)              # (Lyr, B, Q, code)
+            ref_logit = inverse_sigmoid(reference_points.float())
+            xyz = torch.sigmoid(tmp[..., :3] + ref_logit[None])
+            xyz = denormalize_from_pc_range(xyz, self.pc_range)
+            all_bbox = torch.cat([xyz, tmp[..., 3:]], dim=-1)
 
         # --- memory update and outputs, the DN part excluded (:434-450) -----
-        query_valid = torch.cat([
-            torch.ones(b, c.num_query, dtype=torch.bool, device=prop_valid.device),
-            prop_valid,
-            torch.ones(b, np_, dtype=torch.bool, device=prop_valid.device)],
-            dim=1)
-        real_cls, real_bbox = all_cls[:, :, pad_size:], all_bbox[:, :, pad_size:]
-        new_state = post_update_memory_fn(
-            state, real_cls[-1], real_bbox[-1], outs_dec[-1][:, pad_size:],
-            query_valid, timestamp, ego_pose, c.topk_proposals, c.memory_len)
+        with span('model.memory'):
+            query_valid = torch.cat([
+                torch.ones(b, c.num_query, dtype=torch.bool,
+                           device=prop_valid.device),
+                prop_valid,
+                torch.ones(b, np_, dtype=torch.bool, device=prop_valid.device)],
+                dim=1)
+            real_cls = all_cls[:, :, pad_size:]
+            real_bbox = all_bbox[:, :, pad_size:]
+            new_state = post_update_memory_fn(
+                state, real_cls[-1], real_bbox[-1], outs_dec[-1][:, pad_size:],
+                query_valid, timestamp, ego_pose, c.topk_proposals,
+                c.memory_len)
         return {'all_cls_scores': real_cls, 'all_bbox_preds': real_bbox,
                 'dn_cls_scores': all_cls[:, :, :pad_size] if pad_size else None,
                 'dn_bbox_preds': all_bbox[:, :, :pad_size] if pad_size else None,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.spans import span
 from .layers import FFN, LayerNorm, Linear, dropout
 
 
@@ -155,9 +156,10 @@ class PETRTemporalTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         outs = []
         for i in range(self.num_layers):
-            query = getattr(self, f'layer{i}')(
-                query, query_pos, feats, feats_pos, temp_memory, temp_pos,
-                attn_mask, train, generator)
+            with span('model.decoder.layer'):
+                query = getattr(self, f'layer{i}')(
+                    query, query_pos, feats, feats_pos, temp_memory,
+                    temp_pos, attn_mask, train, generator)
             outs.append(query)
         return torch.stack(outs)
 

@@ -29,6 +29,7 @@ from ..config import IMG_MEAN, IMG_STD, BackboneConfig, NeckConfig
 from ..geometry import (denormalize_from_pc_range, inverse_sigmoid,
                         nerf_positional_encoding, normalize_to_pc_range,
                         pos2posemb1d, pos2posemb3d)
+from ..utils.spans import span
 from .farhead import (TemporalState, post_update_memory_fn,
                       pre_update_memory_fn)
 from .layers import MLN, MLP, Conv2d, LayerNorm, Linear
@@ -133,77 +134,83 @@ class StreamPETRHead(nn.Module):
         h, w = feats.shape[-2:]
         ch = c.embed_dims
 
-        feats = self.input_proj(feats)
-        tokens = feats.permute(0, 2, 3, 1).reshape(b, n * h * w, ch)
-        dt = tokens.dtype
+        with span('model.queries'):
+            feats = self.input_proj(feats)
+            tokens = feats.permute(0, 2, 3, 1).reshape(b, n * h * w, ch)
+            dt = tokens.dtype
 
-        # frustum 3D position embedding of every token, through img2lidar
-        img2lidar = torch.linalg.inv(lidar2img.float())
-        tokens_pos = self.pe((h, w), c.input_hw, img2lidar, dtype=dt
-                             ).reshape(b, n * h * w, ch)
+            # frustum 3D position embedding of every token, through img2lidar
+            img2lidar = torch.linalg.inv(lidar2img.float())
+            tokens_pos = self.pe((h, w), c.input_hw, img2lidar, dtype=dt
+                                 ).reshape(b, n * h * w, ch)
 
-        state = pre_update_memory_fn(state, prev_exists, timestamp,
-                                     ego_pose_inv,
-                                     self.pseudo_reference_points,
-                                     c.num_propagated, c.pc_range)
+            state = pre_update_memory_fn(state, prev_exists, timestamp,
+                                         ego_pose_inv,
+                                         self.pseudo_reference_points,
+                                         c.num_propagated, c.pc_range)
 
-        reference_points = self.reference_points[None].expand(
-            b, c.num_query, 3)
-        query_pos = self.query_embedding(
-            pos2posemb3d(reference_points)).to(dt)
-        tgt = torch.zeros_like(query_pos)
+            reference_points = self.reference_points[None].expand(
+                b, c.num_query, 3)
+            query_pos = self.query_embedding(
+                pos2posemb3d(reference_points)).to(dt)
+            tgt = torch.zeros_like(query_pos)
 
-        # temporal alignment (the ego-motion MLNs of FarHead)
-        temp_ref_norm = normalize_to_pc_range(state.ref_points, c.pc_range)
-        temp_pos = self.query_embedding(pos2posemb3d(temp_ref_norm)).to(dt)
-        temp_memory = state.embedding.to(dt)
-        if c.with_ego_pos:
-            eye = torch.eye(4, device=tokens.device)[:3].reshape(1, 1, 12)
-            rec_motion = torch.cat(
-                [torch.zeros_like(reference_points),
-                 eye.expand(b, c.num_query, 12)], dim=-1)
-            rec_motion = nerf_positional_encoding(rec_motion.to(dt))
-            tgt = self.ego_pose_memory(tgt, rec_motion)
-            query_pos = self.ego_pose_pe(query_pos, rec_motion)
-            mem_motion = torch.cat(
-                [state.velo, state.timestamp,
-                 state.egopose[..., :3, :].reshape(b, c.memory_len, 12)],
-                dim=-1)
-            mem_motion = nerf_positional_encoding(mem_motion.to(dt))
-            temp_pos = self.ego_pose_pe(temp_pos, mem_motion)
-            temp_memory = self.ego_pose_memory(temp_memory, mem_motion)
+            # temporal alignment (the ego-motion MLNs of FarHead)
+            temp_ref_norm = normalize_to_pc_range(state.ref_points, c.pc_range)
+            temp_pos = self.query_embedding(pos2posemb3d(temp_ref_norm)).to(dt)
+            temp_memory = state.embedding.to(dt)
+            if c.with_ego_pos:
+                eye = torch.eye(4, device=tokens.device)[:3].reshape(1, 1, 12)
+                rec_motion = torch.cat(
+                    [torch.zeros_like(reference_points),
+                     eye.expand(b, c.num_query, 12)], dim=-1)
+                rec_motion = nerf_positional_encoding(rec_motion.to(dt))
+                tgt = self.ego_pose_memory(tgt, rec_motion)
+                query_pos = self.ego_pose_pe(query_pos, rec_motion)
+                mem_motion = torch.cat(
+                    [state.velo, state.timestamp,
+                     state.egopose[..., :3, :].reshape(b, c.memory_len, 12)],
+                    dim=-1)
+                mem_motion = nerf_positional_encoding(mem_motion.to(dt))
+                temp_pos = self.ego_pose_pe(temp_pos, mem_motion)
+                temp_memory = self.ego_pose_memory(temp_memory, mem_motion)
 
-        query_pos = query_pos + self.time_embedding(
-            pos2posemb1d(torch.zeros_like(reference_points[..., :1]))).to(dt)
-        temp_pos = temp_pos + self.time_embedding(
-            pos2posemb1d(state.timestamp)).to(dt)
+            query_pos = query_pos + self.time_embedding(
+                pos2posemb1d(torch.zeros_like(reference_points[..., :1]))
+            ).to(dt)
+            temp_pos = temp_pos + self.time_embedding(
+                pos2posemb1d(state.timestamp)).to(dt)
 
-        reference_full = reference_points
-        np_ = c.num_propagated
-        if np_ > 0:
-            tgt = torch.cat([tgt, temp_memory[:, :np_]], dim=1)
-            query_pos = torch.cat([query_pos, temp_pos[:, :np_]], dim=1)
-            reference_full = torch.cat(
-                [reference_points, temp_ref_norm[:, :np_]], dim=1)
-            temp_memory = temp_memory[:, np_:]
-            temp_pos = temp_pos[:, np_:]
+            reference_full = reference_points
+            np_ = c.num_propagated
+            if np_ > 0:
+                tgt = torch.cat([tgt, temp_memory[:, :np_]], dim=1)
+                query_pos = torch.cat([query_pos, temp_pos[:, :np_]], dim=1)
+                reference_full = torch.cat(
+                    [reference_points, temp_ref_norm[:, :np_]], dim=1)
+                temp_memory = temp_memory[:, np_:]
+                temp_pos = temp_pos[:, np_:]
 
-        outs_dec = self.decoder(tgt, query_pos, tokens, tokens_pos,
-                                temp_memory, temp_pos, None, train, generator)
-        outs_dec = torch.nan_to_num(outs_dec.float())
+        with span('model.decoder'):
+            outs_dec = self.decoder(tgt, query_pos, tokens, tokens_pos,
+                                    temp_memory, temp_pos, None, train,
+                                    generator)
+            outs_dec = torch.nan_to_num(outs_dec.float())
 
-        all_cls = self.cls_branch(outs_dec)
-        tmp = self.reg_branch(outs_dec)
-        ref_logit = inverse_sigmoid(reference_full.float())
-        xyz = torch.sigmoid(tmp[..., :3] + ref_logit[None])
-        xyz = denormalize_from_pc_range(xyz, c.pc_range)
-        all_bbox = torch.cat([xyz, tmp[..., 3:]], dim=-1)
+        with span('model.branches'):
+            all_cls = self.cls_branch(outs_dec)
+            tmp = self.reg_branch(outs_dec)
+            ref_logit = inverse_sigmoid(reference_full.float())
+            xyz = torch.sigmoid(tmp[..., :3] + ref_logit[None])
+            xyz = denormalize_from_pc_range(xyz, c.pc_range)
+            all_bbox = torch.cat([xyz, tmp[..., 3:]], dim=-1)
 
-        query_valid = torch.ones(all_cls.shape[1:3], dtype=torch.bool,
-                                 device=all_cls.device)
-        new_state = post_update_memory_fn(
-            state, all_cls[-1], all_bbox[-1], outs_dec[-1], query_valid,
-            timestamp, ego_pose, c.topk_proposals, c.memory_len)
+        with span('model.memory'):
+            query_valid = torch.ones(all_cls.shape[1:3], dtype=torch.bool,
+                                     device=all_cls.device)
+            new_state = post_update_memory_fn(
+                state, all_cls[-1], all_bbox[-1], outs_dec[-1], query_valid,
+                timestamp, ego_pose, c.topk_proposals, c.memory_len)
         return {'all_cls_scores': all_cls, 'all_bbox_preds': all_bbox,
                 'query_valid': query_valid, 'state': new_state}
 
@@ -238,19 +245,21 @@ class StreamPETR(nn.Module):
         replaces the bf16 backbone with the int8 one."""
         c = self.cfg
         b, n, h, w, _ = images.shape
-        if not images.is_floating_point():
-            mean = torch.tensor(IMG_MEAN, device=images.device)
-            std = torch.tensor(IMG_STD, device=images.device)
-            images = ((images.float() - mean) / std).to(torch.bfloat16)
-        x = images.reshape(b * n, h, w, 3)
-        if quant_backbone is not None:
-            from ..ops.quant import quant_vovnet_forward, quantize_input
-            stages = quant_vovnet_forward(
-                c.backbone, quant_backbone,
-                quantize_input(x, quant_backbone['s0']))
-        else:
-            stages = self.img_backbone(x.permute(0, 3, 1, 2))
-        lvl = self.img_neck(stages, level=c.feat_level)
+        with span('model.backbone'):
+            if not images.is_floating_point():
+                mean = torch.tensor(IMG_MEAN, device=images.device)
+                std = torch.tensor(IMG_STD, device=images.device)
+                images = ((images.float() - mean) / std).to(torch.bfloat16)
+            x = images.reshape(b * n, h, w, 3)
+            if quant_backbone is not None:
+                from ..ops.quant import quant_vovnet_forward, quantize_input
+                stages = quant_vovnet_forward(
+                    c.backbone, quant_backbone,
+                    quantize_input(x, quant_backbone['s0']))
+            else:
+                stages = self.img_backbone(x.permute(0, 3, 1, 2))
+        with span('model.neck'):
+            lvl = self.img_neck(stages, level=c.feat_level)
         return self.pts_bbox_head(lvl, lidar2img, state, prev_exists,
                                   timestamp, ego_pose, ego_pose_inv, train,
                                   generator)

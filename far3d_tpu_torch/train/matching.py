@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 BIG_COST = 1e4
 NEG_INF = -1e18
 CHECK_EVERY = 8     # iterations between two convergence tests (host syncs)
@@ -262,7 +264,9 @@ def hungarian_match(costs: Sequence[torch.Tensor],
     matched row per column (..., C), as ``auction_match`` gives it (the JAX
     package's ``hungarian_match``), all problems of the list solved as one
     batch (``padded_problems``)."""
-    rows = _solve(*padded_problems(costs, col_valid), 500)
+    problems = padded_problems(costs, col_valid)
+    with span('train.match'):
+        rows = _solve(*problems, 500)
     out, off = [], 0
     for cost in costs:
         n = cost[..., 0, 0].numel()

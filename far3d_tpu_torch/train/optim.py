@@ -29,10 +29,10 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..config import TrainConfig
 from ..parallel import mesh
+from ..utils.spans import span
 
 FROZEN = ('pseudo_reference_points',)
 BACKBONE_PREFIX = 'img_backbone.'
@@ -125,7 +125,7 @@ def clip_and_step(optimizer: torch.optim.AdamW, cfg: TrainConfig,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    with record_function('train.grad_all_reduce'):
+    with span('train.grad_all_reduce'):
         mesh.all_reduce_mean_(grads)
     norm = global_norm(grads)
     scale = torch.where(norm < cfg.grad_clip_norm, torch.ones_like(norm),

@@ -31,7 +31,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import IMG_MEAN, IMG_STD, TrainConfig
 from ..models.detector import decode_boxes
@@ -39,6 +38,7 @@ from ..models.farhead import TemporalState
 from ..models.streampetr import StreamPETR, StreamPETRConfig, init_petr_state
 from ..ops import grid_mask
 from ..parallel import mesh
+from ..utils.spans import span
 from .losses3d import farhead_loss
 from .optim import clip_and_step, ema_update, make_optimizer
 from .step import TrainState
@@ -79,7 +79,7 @@ def petr_step_from_noise(cfg: StreamPETRConfig, train_cfg: TrainConfig,
     loss term, ``total_loss`` and the unclipped ``grad_norm``)."""
     model = state.model
     dev = next(model.parameters()).device
-    with record_function('train.inputs'):
+    with span('train.inputs'):
         images = batch['images']
         if not images.is_floating_point():
             mean = torch.tensor(IMG_MEAN, device=dev)
@@ -91,20 +91,20 @@ def petr_step_from_noise(cfg: StreamPETRConfig, train_cfg: TrainConfig,
             images = images.to(torch.bfloat16)
         gt_boxes9 = torch.cat([batch['gt_boxes'], batch['gt_velocity']],
                               dim=-1)
-    with record_function('train.forward'):
+    with span('train.forward'):
         out = model(images=images, lidar2img=batch['lidar2img'],
                     state=tstate, prev_exists=batch['prev_exists'],
                     timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
                     ego_pose_inv=batch['ego_pose_inv'], train=True,
                     generator=dropout_generator)
-    with record_function('train.loss_3d'):
+    with span('train.loss_3d'):
         losses = farhead_loss(out, gt_boxes9, batch['gt_labels'],
                               batch['gt_mask'], None, cfg)
         total = sum(losses[k] for k in sorted(losses))
-    with record_function('train.backward'):
+    with span('train.backward'):
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-    with record_function('train.optimizer'):
+    with span('train.optimizer'):
         grad_norm = clip_and_step(state.optimizer, train_cfg, state.step)
         if state.ema is not None:
             ema_update(state.ema, model, state.step, train_cfg.ema_decay)
@@ -141,14 +141,18 @@ def make_petr_infer_step(cfg: StreamPETRConfig):
     @torch.inference_mode()
     def infer_step(model: StreamPETR, tstate: TemporalState,
                    batch: Dict[str, torch.Tensor], quant_tree=None):
-        out = model(images=batch['images'], lidar2img=batch['lidar2img'],
-                    state=tstate, prev_exists=batch['prev_exists'],
-                    timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
-                    ego_pose_inv=batch['ego_pose_inv'],
-                    quant_backbone=quant_tree)
-        dets = decode_boxes(out['all_cls_scores'][-1],
-                            out['all_bbox_preds'][-1], out['query_valid'],
-                            cfg.max_decode_num, cfg.post_center_range)
+        with span('serve.step'):
+            out = model(images=batch['images'], lidar2img=batch['lidar2img'],
+                        state=tstate, prev_exists=batch['prev_exists'],
+                        timestamp=batch['timestamp'],
+                        ego_pose=batch['ego_pose'],
+                        ego_pose_inv=batch['ego_pose_inv'],
+                        quant_backbone=quant_tree)
+            with span('serve.decode'):
+                dets = decode_boxes(out['all_cls_scores'][-1],
+                                    out['all_bbox_preds'][-1],
+                                    out['query_valid'], cfg.max_decode_num,
+                                    cfg.post_center_range)
         return dets, out['state']
 
     return infer_step

@@ -15,12 +15,13 @@ test can hand in the JAX step's draws. Dropout draws from a second generator
 on the model's device, passed to the forward. The state is a model, its
 optimizer and a step count, updated in place and returned.
 
-The step's parts are labelled with ``torch.profiler.record_function``
-(train.inputs, train.forward, train.loss_3d, which holds the matching's
-auction and its convergence tests, train.loss_2d, train.backward,
-train.optimizer, which holds train.grad_all_reduce) so that
-``tools/profile_torch_port.py --train`` can say where a step's time goes;
-outside a profiler a label costs a few microseconds of host time.
+The step's parts are labelled with ``utils/spans.py:span`` (train.inputs,
+train.forward, train.loss_3d, which holds the matching's auction,
+train.match, and its convergence tests, train.loss_2d, train.backward,
+train.optimizer, which holds train.grad_all_reduce), and the inference
+step's with serve.step and serve.decode, so that a profiler's trace, as
+``portbench``'s ``--trace 1`` takes it, says where a step's time goes;
+outside a profiler a label costs a flag test.
 
 Data parallelism (``parallel/mesh.py``): each rank steps on its lanes of the
 global batch. ``train_step`` draws the DN noise for the global batch from
@@ -38,7 +39,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import Far3DConfig
 from ..models.detector import Far3D, decode_detections, level_shapes
@@ -46,6 +46,7 @@ from ..models.farhead import TemporalState, init_state
 from ..models.heads2d import make_priors
 from ..ops import grid_mask
 from ..parallel import mesh
+from ..utils.spans import span
 from .dn import build_queries, draw_noise
 from .losses2d import yolox_loss
 from .losses3d import farhead_loss
@@ -99,7 +100,7 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
     ``use_gt_depth_until_iter``); without, at the depth net's top bins."""
     model = state.model
     dev = next(model.parameters()).device
-    with record_function('train.inputs'):
+    with span('train.inputs'):
         images = batch['images']
         if not images.is_floating_point():
             # uint8 transport: normalize before the grid mask, so masked
@@ -119,7 +120,7 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
         b, n = images.shape[:2]
         priors = make_priors(level_shapes(cfg), cfg.strides, device=dev)
 
-    with record_function('train.forward'):
+    with span('train.forward'):
         out = model(images=images, lidar2img=batch['lidar2img'],
                     intrinsics=batch['intrinsics'],
                     extrinsics=batch['extrinsics'], state=tstate,
@@ -131,10 +132,10 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
                     dn_valid=None if dn is None else dn['valid'],
                     use_gt_depth=use_gt_depth, train=True,
                     generator=dropout_generator)
-    with record_function('train.loss_3d'):
+    with span('train.loss_3d'):
         losses = farhead_loss(out, batch['gt_boxes'], batch['gt_labels'],
                               batch['gt_mask'], dn, cfg.head)
-    with record_function('train.loss_2d'):
+    with span('train.loss_2d'):
         g2 = batch['gt_boxes2d'].shape[2]
         losses.update(yolox_loss(
             out['outs2d'], priors,
@@ -146,10 +147,10 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
             batch['gt_depth_fg'].reshape(b * n, -1), cfg.roi2d))
         total = sum(losses[k] for k in sorted(losses))
 
-    with record_function('train.backward'):
+    with span('train.backward'):
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-    with record_function('train.optimizer'):
+    with span('train.optimizer'):
         grad_norm = clip_and_step(state.optimizer, cfg.train, state.step)
         if state.ema is not None:
             ema_update(state.ema, model, state.step, cfg.train.ema_decay)
@@ -189,16 +190,19 @@ def make_infer_step(cfg: Far3DConfig):
     @torch.inference_mode()
     def infer_step(model: Far3D, tstate: TemporalState,
                    batch: Dict[str, torch.Tensor], quant_tree=None):
-        out = model(images=batch['images'], lidar2img=batch['lidar2img'],
-                    intrinsics=batch['intrinsics'],
-                    extrinsics=batch['extrinsics'], state=tstate,
-                    prev_exists=batch['prev_exists'],
-                    timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
-                    ego_pose_inv=batch['ego_pose_inv'],
-                    quant_backbone=quant_tree)
-        dets = decode_detections(out['all_cls_scores'][-1],
-                                 out['all_bbox_preds'][-1],
-                                 out['query_valid'], cfg)
+        with span('serve.step'):
+            out = model(images=batch['images'], lidar2img=batch['lidar2img'],
+                        intrinsics=batch['intrinsics'],
+                        extrinsics=batch['extrinsics'], state=tstate,
+                        prev_exists=batch['prev_exists'],
+                        timestamp=batch['timestamp'],
+                        ego_pose=batch['ego_pose'],
+                        ego_pose_inv=batch['ego_pose_inv'],
+                        quant_backbone=quant_tree)
+            with span('serve.decode'):
+                dets = decode_detections(out['all_cls_scores'][-1],
+                                         out['all_bbox_preds'][-1],
+                                         out['query_valid'], cfg)
         return dets, out['state']
 
     return infer_step

@@ -91,8 +91,7 @@ def _imported_roots(path):
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / 'far3d_tpu_torch').rglob('*.py')]
-    + ['chip_smoke.py', 'tools/profile_torch_port.py',
-       'tools/micro_osa_torch.py']))
+    + ['chip_smoke.py', 'tools/micro_osa_torch.py']))
 def test_source_imports_no_jax(path):
     """Neither jax, the JAX package nor OpenCV, by the syntax tree (every
     import statement, nested ones included) and by the source text."""
