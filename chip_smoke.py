@@ -199,6 +199,7 @@ import itertools
 import json
 import os
 import pickle
+import re
 import socket
 import statistics
 import subprocess
@@ -230,6 +231,7 @@ from far3d_tpu_torch.data.loader import EvalLoader, TrainLoader
 from far3d_tpu_torch.entry import (build_model, build_petr_model, entry,
                                    petr_entry, petr_train_entry, run_frame,
                                    train_entry)
+from far3d_tpu_torch.eval import runner as eval_runner
 from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
 from far3d_tpu_torch.models.farhead import init_state
 from far3d_tpu_torch.models.streampetr import (StreamPETRConfig,
@@ -736,6 +738,50 @@ def launch_breakdown(fn, reps=20):
                 and not getattr(ev, 'is_user_annotation', False)):
             ms[ev.name] = ms.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     return sorted(((k, v / reps) for k, v in ms.items()), key=lambda kv: -kv[1])
+
+
+def port_kernels(fn, names):
+    """Runs `fn` under torch.profiler and counts, for each launch counter of
+    `names` (``ops/_build.py:launch_counts``), the kernels named
+    ``<name>_kernel`` that ran on the card, leaving out those of a CUDA
+    graph's warm-up (launched inside a ``serve.capture`` label,
+    ``utils/graphs.py``). Returns (fn's result, {name: kernels}, {name: those
+    of them a cudaGraphLaunch launched}): a replayed frame calls no
+    launch-counting wrapper, so its kernels are counted here."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+
+    def start_end(e):
+        return e.start_ns(), e.start_ns() + e.duration_ns()
+
+    def on_card(e):
+        return 'CUDA' in str(e.device_type()).upper()
+
+    warm_up = [start_end(e) for e in events
+               if e.name() == 'serve.capture' and not on_card(e)]
+    launched_at, by_graph = {}, set()
+    for e in events:
+        if not on_card(e) and re.match(r'cu[A-Z]|cuda[A-Z]', e.name()):
+            launched_at[e.correlation_id()] = e.start_ns()
+            if e.name().startswith('cudaGraphLaunch'):
+                by_graph.add(e.correlation_id())
+    run, replayed = {}, {}
+    for e in events:
+        name = next((n for n in names if f'{n}_kernel' in e.name()), None)
+        if name is None or not on_card(e):
+            continue
+        at = launched_at.get(e.correlation_id())
+        if at is not None and any(a <= at <= b for a, b in warm_up):
+            continue
+        run[name] = run.get(name, 0) + 1
+        if e.correlation_id() in by_graph:
+            replayed[name] = replayed.get(name, 0) + 1
+    return out, run, replayed
 
 
 def composite_backward(value, shapes, loc, weights, grad_out, d_value=True):
@@ -1318,13 +1364,22 @@ def dataset_path(cfg, dev, card, workdir):
     eval_ds = AV2SequenceDataset(ann, str(workdir), split='val',
                                  seq_split_num=1)
     frames = TimedFrames(EvalLoader(eval_ds, cfg, num_threads=8))
-    _build.reset_launch_counts()
     results = run_inference(cfg, state.model, frames)
-    torch.cuda.synchronize()
-    eval_launches = _build.launch_counts[msda_cuda.FWD]
-    if len(results) != n_frames or eval_launches != LAYERS_PER_FRAME * n_frames:
-        raise AssertionError(f'eval: {len(results)} frames, {eval_launches} '
-                             f'msda_fwd launches')
+    # the same eval again under the profiler: frame 0 runs eagerly, frame 1
+    # captures the key, and it and every later frame replay their CUDA
+    # graphs; msda_fwd counted on the card, by name
+    again, run, replayed = port_kernels(
+        lambda: run_inference(cfg, state.model,
+                              EvalLoader(eval_ds, cfg, num_threads=8)),
+        [msda_cuda.FWD])
+    eval_launches = run.get(msda_cuda.FWD, 0)
+    eval_replayed = replayed.get(msda_cuda.FWD, 0)
+    if (len(results) != n_frames or len(again) != n_frames
+            or eval_launches != LAYERS_PER_FRAME * n_frames
+            or eval_replayed != LAYERS_PER_FRAME * (n_frames - 1)):
+        raise AssertionError(f'eval: {len(results)} and {len(again)} frames, '
+                             f'{eval_launches} msda_fwd kernels on the card, '
+                             f'{eval_replayed} of them replayed')
     _, means = collect_and_evaluate(cfg, eval_ds, str(workdir / 'results'),
                                     0, 1, results)
     if not all(np.isfinite(v) for v in means.values()):
@@ -1334,8 +1389,9 @@ def dataset_path(cfg, dev, card, workdir):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f'  eval over {len(results)} frames: mAP {means["mAP"]:.4f}, CDS '
         f'{means["CDS"]:.4f}; {eval_ms:.2f} ms/frame with the upload (median '
-        f'of frames 2..{n_frames - 1}); msda_fwd launches {eval_launches}; '
-        f'peak memory {peak:.2f} GiB [{card}]')
+        f'of frames 2..{n_frames - 1}); msda_fwd on the card {eval_launches}, '
+        f'{eval_replayed} of them replayed (a second, profiled run); peak '
+        f'memory {peak:.2f} GiB [{card}]')
     return dict(train_launches=train_launches, eval_launches=eval_launches,
                 ms_step=ms_step, wait_ms=wait_ms, idle_ms=idle_ms,
                 eval_ms=eval_ms, ckpt_gb=ckpt_gb, save_s=save_s,
@@ -1696,31 +1752,41 @@ def serving_path(cfg, dev, card):
                     raise AssertionError(f'frame {i}: non-finite {k}')
         return statistics.median(times[2:]), dets
 
-    frames(q)                                          # warm-up
+    frames(q)                   # warm-up: frame 0 eager, frame 1 captures
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    int8_frame_ms, dets = frames(q)
+    int8_frame_ms, dets = frames(q)                    # replays
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
-    want = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME * SERVE_FRAMES,
-            qconv_cuda.NAMES['mma']: (QCONV_PER_FRAME - QCONV_TMA_PER_FRAME)
-            * SERVE_FRAMES,
-            ese_requant_cuda.NAME: BLOCKS_PER_FRAME * SERVE_FRAMES,
-            'msda_fwd': LAYERS_PER_FRAME * SERVE_FRAMES}
-    if {k: v for k, v in launches.items() if v} != want:
-        raise AssertionError(f'launches on the int8 path {launches}, '
-                             f'expected {want}')
+    per_frame = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME,
+                 qconv_cuda.NAMES['mma']: QCONV_PER_FRAME
+                 - QCONV_TMA_PER_FRAME,
+                 ese_requant_cuda.NAME: BLOCKS_PER_FRAME,
+                 'msda_fwd': LAYERS_PER_FRAME}
+    want = {k: n * SERVE_FRAMES for k, n in per_frame.items()}
+    # the replayed frames call no launch-counting wrapper: the capture's
+    # wrappers counted one frame, and the profiler counts the kernels of
+    # SERVE_FRAMES more replays on the card, by name
+    _, launches, replayed = port_kernels(lambda: frames(q), per_frame)
+    counted = list(infer.capture_launches.values())
+    if counted != [per_frame] or launches != want or replayed != want:
+        raise AssertionError(f'int8 path: the capture counted {counted}, '
+                             f'expected [{per_frame}]; on the card '
+                             f'{launches}, replayed {replayed}, expected '
+                             f'{want}')
+    if (infer.captures, infer.replays) != (1, 3 * SERVE_FRAMES - 1):
+        raise AssertionError(f'int8 frames: {infer.captures} captures, '
+                             f'{infer.replays} replays')
     bf16_frame_ms, _ = frames(None)
     int8_again_ms, _ = frames(q)
-    log(f'  {SERVE_FRAMES} streaming frames through quant_backbone: launches '
-        f'{launches} ({QCONV_TMA_PER_FRAME} qconv_tma, '
+    log(f'  {SERVE_FRAMES} streaming frames through quant_backbone, replayed '
+        f'from CUDA graphs: kernels on the card {launches} '
+        f'({QCONV_TMA_PER_FRAME} qconv_tma, '
         f'{QCONV_PER_FRAME - QCONV_TMA_PER_FRAME} qconv_mma, '
         f'{BLOCKS_PER_FRAME} ese_requant and {LAYERS_PER_FRAME} msda_fwd a '
         f'frame); top score {dets["scores"][0, 0].item():.4f}, valid '
         f'{int(dets["valid"].sum())}')
-    log(f'  ms/frame (median of frames 2..{SERVE_FRAMES - 1}), in turn: int8 '
-        f'{int8_frame_ms:.2f}, bf16 {bf16_frame_ms:.2f}, int8 '
-        f'{int8_again_ms:.2f} [{card}]')
+    log(f'  ms/frame (median of frames 2..{SERVE_FRAMES - 1}, replayed from '
+        f'CUDA graphs), in turn: int8 {int8_frame_ms:.2f}, bf16 '
+        f'{bf16_frame_ms:.2f}, int8 {int8_again_ms:.2f} [{card}]')
 
     x_bf16 = torch.from_numpy(inference_inputs(cfg, seed=3)['images']).to(
         dev, torch.bfloat16)
@@ -1821,12 +1887,12 @@ def serving_cli(workdir, card):
     return out
 
 
-def petr_frames(step, state0, tree, dev, cfg):
-    """PETR_FRAMES streaming frames from a fresh state through `step`
+def petr_frames(step, state0, tree, dev, cfg, frames=PETR_FRAMES):
+    """`frames` streaming frames from a fresh state through `step`
     (quant_tree=`tree`): ms a frame on the host clock ending in
     torch.cuda.synchronize(), the last detections."""
     state, times, dets = state0, [], None
-    for i in range(PETR_FRAMES):
+    for i in range(frames):
         t0 = time.perf_counter()
         dets, state = step(state, quant_tree=tree,
                            prev_exists=torch.full((1,), float(i > 0),
@@ -1907,28 +1973,47 @@ def petr_serving_path(dev, card):
         if 'args' not in captured:
             captured['args'] = [a.detach().clone() for a in args[:3]]
 
+    # one hooked bf16 frame, eager, gives the cross attention's operands;
+    # the timed frames of both modes run unhooked and replay
     hook = ca.register_forward_pre_hook(capture)
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    bf16_times, bf16_dets = petr_frames(step, state0, None, dev, cfg)
-    bf16_launches = {k: v for k, v in _build.launch_counts.items() if v}
+    petr_frames(step, state0, None, dev, cfg, frames=1)
     hook.remove()
-    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bf16_times, bf16_dets = petr_frames(step, state0, None, dev, cfg)
     int8_times, int8_dets = petr_frames(step, state0, q, dev, cfg)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in _build.launch_counts.items() if v}
-    want = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME * PETR_FRAMES,
-            qconv_cuda.NAMES['mma']: (QCONV_PER_FRAME - QCONV_TMA_PER_FRAME)
-            * PETR_FRAMES,
-            ese_requant_cuda.NAME: BLOCKS_PER_FRAME * PETR_FRAMES}
-    if bf16_launches or launches != want:
-        raise AssertionError(f'StreamPETR launches: bf16 {bf16_launches} '
-                             f'(none expected), int8 {launches}, expected '
-                             f'{want}')
+    per_frame = {qconv_cuda.NAMES['tma']: QCONV_TMA_PER_FRAME,
+                 qconv_cuda.NAMES['mma']: QCONV_PER_FRAME
+                 - QCONV_TMA_PER_FRAME,
+                 ese_requant_cuda.NAME: BLOCKS_PER_FRAME}
+    want = {k: n * PETR_FRAMES for k, n in per_frame.items()}
+    # the replayed frames call no launch-counting wrapper: each mode's
+    # capture counted one frame, and the profiler counts the kernels of
+    # PETR_FRAMES more frames of each mode on the card, by name
+    _, bf16_launches, _ = port_kernels(
+        lambda: petr_frames(step, state0, None, dev, cfg), per_frame)
+    _, launches, replayed = port_kernels(
+        lambda: petr_frames(step, state0, q, dev, cfg), per_frame)
+    infer = step.infer
+    counted = sorted(infer.capture_launches.values(), key=len)
+    if (bf16_launches or launches != want or replayed != want
+            or counted != [{}, per_frame]):
+        raise AssertionError(f'StreamPETR: the captures counted {counted}, '
+                             f'expected bf16 none and int8 {per_frame}; on '
+                             f'the card bf16 {bf16_launches} (none '
+                             f'expected), int8 {launches}, replayed '
+                             f'{replayed}, expected {want}')
+    # eager: the hooked frame and the first int8 frame
+    if (infer.eager_frames, infer.captures, infer.replays) != (
+            2, 2, 4 * PETR_FRAMES - 1):
+        raise AssertionError(f'StreamPETR frames: {infer.eager_frames} '
+                             f'eager, {infer.captures} captures, '
+                             f'{infer.replays} replayed')
     bf16_ms = statistics.median(bf16_times[2:])
     int8_ms = statistics.median(int8_times[2:])
     log(f'  {PETR_FRAMES} streaming frames bf16, then the same {PETR_FRAMES} '
-        f'through quant_backbone: launches bf16 none, int8 {launches} '
+        f'through quant_backbone, both replayed from CUDA graphs: kernels '
+        f'on the card bf16 none, int8 {launches} '
         f'({QCONV_TMA_PER_FRAME} qconv_tma, '
         f'{QCONV_PER_FRAME - QCONV_TMA_PER_FRAME} qconv_mma, '
         f'{BLOCKS_PER_FRAME} ese_requant a frame); top score bf16 '
@@ -2910,17 +2995,37 @@ def closed_loop_phase(card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    # the eval's frames replay from CUDA graphs, which call no
+    # launch-counting wrapper: its msda_fwd is counted on the card, by name
+    real_eval, evals = eval_runner.run_inference, []
+
+    def profiled_eval(*args, **kw):
+        before = dict(_build.launch_counts)
+        out, run, _ = port_kernels(lambda: real_eval(*args, **kw),
+                                   [msda_cuda.FWD])
+        evals.append(dict(frames=len(out), on_card=run.get(msda_cuda.FWD, 0),
+                          wrapped={k: _build.launch_counts[k] - before[k]
+                                   for k in MSDA_NAMES}))
+        return out
+
     with tempfile.TemporaryDirectory(prefix='far3d_ovf_') as tmp:
         t0 = time.perf_counter()
         runner.train_step = timed_step
+        eval_runner.run_inference = profiled_eval
         try:
             _build.reset_launch_counts()
             curve = cli_overfit_full.run_closed_loop_full(
                 tmp, CLOSED_STEPS, eval_every=CLOSED_STEPS,
                 gt_depth_until=CLOSED_STEPS // 2)
-            launches = {k: _build.launch_counts[k] for k in MSDA_NAMES}
+            # the training steps' launches through the wrappers, and the
+            # eval's on the card
+            launches = {k: _build.launch_counts[k]
+                        - sum(e['wrapped'][k] for e in evals)
+                        for k in MSDA_NAMES}
+            launches[msda_cuda.FWD] += sum(e['on_card'] for e in evals)
         finally:
             runner.train_step = real_step
+            eval_runner.run_inference = real_eval
         wall = time.perf_counter() - t0
         n_eval = len(AV2SequenceDataset(f'{tmp}/infos.pkl', tmp, split='val',
                                         seq_split_num=1, test_mode=False))
@@ -2932,9 +3037,10 @@ def closed_loop_phase(card):
     want = {msda_cuda.FWD: LAYERS_PER_FRAME * (CLOSED_STEPS + n_eval),
             msda_cuda.DVAL: LAYERS_PER_FRAME * CLOSED_STEPS,
             msda_cuda.DATTN: LAYERS_PER_FRAME * CLOSED_STEPS}
-    if launches != want:
+    if launches != want or [e['frames'] for e in evals] != [n_eval]:
         raise AssertionError(f'closed loop launches {launches}, expected '
-                             f'{want} (6 a step, 6 an eval frame forward)')
+                             f'{want} (6 a step, 6 an eval frame forward); '
+                             f'evals {evals}')
     last = curve[-1]
     if not (len(curve) == 1 and last['iter'] == CLOSED_STEPS
             and np.isfinite(last['mAP']) and np.isfinite(last['CDS'])):
@@ -2945,8 +3051,8 @@ def closed_loop_phase(card):
         f'{last["CDS"]:.4f}; launches {launches} ({LAYERS_PER_FRAME} of each '
         f'a step, msda_fwd also {LAYERS_PER_FRAME} an eval frame); '
         f'{ms_step:.2f} ms/step (median of steps 2..{CLOSED_STEPS - 1}); '
-        f'eval {last["eval_s"]:.1f} s; {wall:.1f} s with the dataset and '
-        f'cache [{card}]')
+        f'eval {last["eval_s"]:.1f} s under the profiler; {wall:.1f} s with '
+        f'the dataset and cache [{card}]')
     return {'curve': curve, 'launches': launches, 'eval_frames': n_eval,
             'ms_step': ms_step, 'wall_s': wall}
 
@@ -3069,15 +3175,16 @@ def tools_phase(data_dir, nusc_dir, card):
             out_dir = Path(tmp) / name
             if name != 'eval_aug_delta' and not name.startswith('eval_recall'):
                 argv = argv + ['--out-dir', str(out_dir)]
-            _build.reset_launch_counts()
             t0 = time.perf_counter()
-            result = run(argv)
-            torch.cuda.synchronize()
+            # msda_fwd counted on the card: an eval loop's frames replay
+            # from CUDA graphs, which call no launch-counting wrapper
+            result, run_on_card, _ = port_kernels(lambda: run(argv),
+                                                  [msda_cuda.FWD])
             wall = time.perf_counter() - t0
-            launches = _build.launch_counts.get(msda_cuda.FWD, 0)
+            launches = run_on_card.get(msda_cuda.FWD, 0)
             if launches != LAYERS_PER_FRAME * det_frames:
                 raise AssertionError(
-                    f'{name}: msda_fwd launched {launches} times, expected '
+                    f'{name}: msda_fwd ran {launches} times, expected '
                     f'{LAYERS_PER_FRAME * det_frames} ({LAYERS_PER_FRAME} a '
                     f'frame of {det_frames} through the detector)')
             if result is None or not _finite(result):
@@ -3092,11 +3199,12 @@ def tools_phase(data_dir, nusc_dir, card):
             if name not in ('eval_aug_delta',) and \
                     not name.startswith('eval_recall') and not files:
                 raise AssertionError(f'{name}: wrote no image')
-            out[name] = {'wall_s': wall, 'frames': frames,
-                         'ms_per_frame': wall * 1e3 / frames,
+            out[name] = {'profiled_wall_s': wall, 'frames': frames,
+                         'profiled_ms_per_frame': wall * 1e3 / frames,
                          'launches': launches, 'files': len(files)}
-            log(f'  {name}: {wall:.1f} s, {frames} frames, '
-                f'{wall * 1e3 / frames:.0f} ms a frame, msda_fwd {launches}, '
+            log(f'  {name}: {wall:.1f} s under the profiler, {frames} '
+                f'frames, {wall * 1e3 / frames:.0f} ms a frame, msda_fwd '
+                f'{launches} on the card, '
                 f'{len(files)} files decoded [{card}]')
             torch.cuda.empty_cache()
     return out

@@ -123,7 +123,8 @@ def petr_entry(cfg=None, device=None, seed: int = 0):
     runs one StreamPETR frame of the synthetic 6-camera inputs, images in
     bf16, and its decode, and returns (detections, next state); with
     `quant_tree` (``ops.quant.quantize_petr_backbone(step.model, ...)``)
-    the int8 backbone serves. ``step.model`` is the model."""
+    the int8 backbone serves. ``step.model`` is the model, ``step.infer``
+    the ``make_petr_infer_step`` step it runs frames through."""
     from .models.streampetr import StreamPETRConfig, init_petr_state
     from .train.petr_step import make_petr_infer_step
     from .utils.synthetic import petr_inference_inputs
@@ -138,7 +139,7 @@ def petr_entry(cfg=None, device=None, seed: int = 0):
     def step(state, quant_tree=None, **overrides):
         return infer(model, state, {**inputs, **overrides}, quant_tree)
 
-    step.model = model
+    step.model, step.infer = model, infer
     return step, (init_petr_state(1, cfg, device),)
 
 

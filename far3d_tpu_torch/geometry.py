@@ -12,6 +12,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .utils.constants import constant
+
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Numerically clamped logit (mmdet transformer.inverse_sigmoid)."""
@@ -121,8 +123,8 @@ def project_to_image(points: torch.Tensor, lidar2img: torch.Tensor,
 
 
 def _range(pc_range: Sequence[float], like: torch.Tensor):
-    lo = torch.tensor(pc_range[:3], dtype=like.dtype, device=like.device)
-    hi = torch.tensor(pc_range[3:6], dtype=like.dtype, device=like.device)
+    lo = constant(pc_range[:3], like.dtype, like.device)
+    hi = constant(pc_range[3:6], like.dtype, like.device)
     return lo, hi
 
 

@@ -25,6 +25,7 @@ from torch import nn
 from ..config import DecoderConfig, DeformableAggConfig
 from ..geometry import denormalize_from_pc_range, project_to_image
 from ..ops.msda import MSDA
+from ..utils.constants import constant
 from ..utils.spans import span
 from .layers import FFN, Linear, dropout
 
@@ -91,8 +92,7 @@ class DeformableAggregation(nn.Module):
         uv, _ = project_to_image(key_points[:, None],
                                  lidar2img[:, :, None, None])
         pad_h, pad_w = self.pad_hw
-        loc = uv / torch.tensor([pad_w, pad_h], dtype=uv.dtype,
-                                device=uv.device)
+        loc = uv / constant((pad_w, pad_h), uv.dtype, uv.device)
         loc = loc.reshape(b * n, q, p, 2)
         if self.capture is not None:
             self.capture.append({'sampling_loc': loc.detach(),

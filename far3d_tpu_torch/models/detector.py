@@ -9,13 +9,14 @@ Child names are the reference checkpoint's top-level prefixes.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..config import Far3DConfig
 from ..geometry import denormalize_bbox
+from ..utils.constants import constant
 from ..utils.spans import span
 from .farhead import FarHead, TemporalState
 from .heads2d import YoloxHead2D, select_proposals
@@ -55,7 +56,8 @@ class Far3D(nn.Module):
                 use_gt_depth: bool = False,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                quant_backbone: Optional[Dict[str, Any]] = None
+                quant_backbone: Optional[Dict[str, Any]] = None,
+                feats: Optional[List[torch.Tensor]] = None
                 ) -> Dict[str, Any]:
         """The images' dtype sets the dtype of the image side (backbone, FPN,
         2D head and the sampled feature pyramid); the query side is f32.
@@ -68,15 +70,28 @@ class Far3D(nn.Module):
         the denoising queries of ``train/dn.py``. The raw 2D head maps come
         back as ``outs2d`` for the 2D loss. `quant_backbone`, a tree of
         ``ops/quant.py`` (``quantize_detector_backbone``), replaces the bf16
-        backbone with the int8 one: the serving mode."""
+        backbone with the int8 one: the serving mode. `feats`, the output of a
+        ``forward_towers`` call the caller made, takes the place of that call."""
         b, n = images.shape[:2]
-        with span('model.backbone'):
-            x = normalize_images(images, self.cfg)
-        feats, outs2d = camera_towers(self, x, train, quant_backbone)
+        if feats is None:
+            feats = self.forward_towers(images, quant_backbone)
+        with span('model.head2d'):
+            outs2d = self.img_roi_head(feats, train)
         return self.forward_head(
             feats, outs2d, b, n, lidar2img, intrinsics, extrinsics, state,
             prev_exists, timestamp, ego_pose, ego_pose_inv, gt_depth_bins,
             dn_ref_points, dn_valid, use_gt_depth, train, generator)
+
+    def forward_towers(self, images: torch.Tensor,
+                       quant_backbone: Optional[Dict[str, Any]] = None
+                       ) -> List[torch.Tensor]:
+        """The image side of the frame up to the FPN: (B, N, H, W, 3)
+        images normalized (``normalize_images``), the backbone (bf16, or
+        int8 with `quant_backbone`) and the FPN -> 4 x (B * N, C, Hl, Wl)
+        features, camera-minor."""
+        with span('model.backbone'):
+            x = normalize_images(images, self.cfg)
+        return backbone_neck(self, x, quant_backbone)
 
     def forward_head(self, feats, outs2d, b, n, lidar2img, intrinsics,
                      extrinsics, state, prev_exists, timestamp, ego_pose,
@@ -116,8 +131,8 @@ def normalize_images(images: torch.Tensor, cfg: Far3DConfig) -> torch.Tensor:
     as the JAX package casts; float images pass as they are."""
     b, n, h, w, _ = images.shape
     if not images.is_floating_point():
-        mean = torch.tensor(cfg.data.img_mean, device=images.device)
-        std = torch.tensor(cfg.data.img_std, device=images.device)
+        mean = constant(cfg.data.img_mean, torch.float32, images.device)
+        std = constant(cfg.data.img_std, torch.float32, images.device)
         images = ((images.float() - mean) / std).to(torch.bfloat16)
     return images.reshape(b * n, h, w, 3)
 
@@ -129,6 +144,15 @@ def camera_towers(towers: nn.Module, x: torch.Tensor, train: bool = False,
     head and the depth net of `towers` (a ``Far3D``, or a replica holding
     its ``img_backbone``, ``img_neck`` and ``img_roi_head``). Returns
     (4 x (BN, C, Hl, Wl) features, the 2D head's maps)."""
+    feats = backbone_neck(towers, x, quant_backbone)
+    with span('model.head2d'):
+        return feats, towers.img_roi_head(feats, train)
+
+
+def backbone_neck(towers: nn.Module, x: torch.Tensor,
+                  quant_backbone: Optional[Dict[str, Any]] = None
+                  ) -> List[torch.Tensor]:
+    """``camera_towers`` up to the FPN: 4 x (BN, C, Hl, Wl) features."""
     with span('model.backbone'):
         if quant_backbone is not None:
             # int8 serving path: NHWC int8 from the normalized images
@@ -140,9 +164,7 @@ def camera_towers(towers: nn.Module, x: torch.Tensor, train: bool = False,
             # NHWC -> NCHW shape; on the card this is channels_last in memory
             stages = towers.img_backbone(x.permute(0, 3, 1, 2))
     with span('model.neck'):
-        feats = towers.img_neck(stages)                  # 4 x (BN, C, Hl, Wl)
-    with span('model.head2d'):
-        return feats, towers.img_roi_head(feats, train)
+        return towers.img_neck(stages)                   # 4 x (BN, C, Hl, Wl)
 
 
 def decode_detections(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
@@ -180,7 +202,7 @@ def decode_boxes(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
         boxes = torch.cat([boxes, boxes.new_zeros(*boxes.shape[:-1], 2)], dim=-1)
     boxes = torch.cat([boxes[..., :2], boxes[..., 2:3] - 0.5 * boxes[..., 5:6],
                        boxes[..., 3:]], dim=-1)
-    pcr = torch.tensor(post_center_range, dtype=code.dtype, device=code.device)
+    pcr = constant(post_center_range, code.dtype, code.device)
     center = code[..., :3]
     in_range = ((center >= pcr[:3]).all(-1) & (center <= pcr[3:6]).all(-1))
     return {'boxes': boxes, 'scores': top_scores, 'labels': labels,

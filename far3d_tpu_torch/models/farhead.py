@@ -179,7 +179,7 @@ def build_query2d_proposals(proposals: Dict[str, torch.Tensor],
     depth = lid_bin_to_depth(bins, depth_cfg.depth_min, depth_cfg.depth_max,
                              depth_cfg.num_depth_bins)          # (B, K, S)
     # unproject each depth slot through img2lidar (farhead.py:792-811)
-    img2lidar = torch.linalg.inv(lidar2img.float())
+    img2lidar = torch.linalg.inv_ex(lidar2img.float())[0]   # no host sync
     i2l = img2lidar[bidx, cam_idx]                              # (B, K, 4, 4)
     pts = unproject_to_lidar(boxes[:, :, None, :2], depth[..., None],
                              i2l[:, :, None])                   # (B, K, S, 3)

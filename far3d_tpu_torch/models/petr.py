@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.constants import constant
 from ..utils.spans import span
 from .layers import FFN, LayerNorm, Linear, dropout
 
@@ -280,8 +281,8 @@ class FrustumPE(nn.Module):
                            d.expand(shape), torch.ones(shape, **f32)], dim=-1)
         pts = torch.einsum('bnij,hwdj->bnhwdi', img2lidar.float(),
                            uvd)[..., :3]
-        lo = torch.tensor(pr[:3], **f32)
-        hi = torch.tensor(pr[3:6], **f32)
+        lo = constant(pr[:3], torch.float32, dev)
+        hi = constant(pr[3:6], torch.float32, dev)
         pts = ((pts - lo) / (hi - lo)).reshape(b * n, h * w,
                                                self.depth_num * 3).to(dtype)
         return self.pe_fc2(F.relu(self.pe_fc1(pts)))

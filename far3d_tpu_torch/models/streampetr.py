@@ -29,6 +29,7 @@ from ..config import IMG_MEAN, IMG_STD, BackboneConfig, NeckConfig
 from ..geometry import (denormalize_from_pc_range, inverse_sigmoid,
                         nerf_positional_encoding, normalize_to_pc_range,
                         pos2posemb1d, pos2posemb3d)
+from ..utils.constants import constant
 from ..utils.spans import span
 from .farhead import (TemporalState, post_update_memory_fn,
                       pre_update_memory_fn)
@@ -140,7 +141,7 @@ class StreamPETRHead(nn.Module):
             dt = tokens.dtype
 
             # frustum 3D position embedding of every token, through img2lidar
-            img2lidar = torch.linalg.inv(lidar2img.float())
+            img2lidar = torch.linalg.inv_ex(lidar2img.float())[0]  # no sync
             tokens_pos = self.pe((h, w), c.input_hw, img2lidar, dtype=dt
                                  ).reshape(b, n * h * w, ch)
 
@@ -235,20 +236,34 @@ class StreamPETR(nn.Module):
                 ego_pose_inv: torch.Tensor,   # (B, 4, 4)
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                quant_backbone: Optional[Dict[str, Any]] = None
+                quant_backbone: Optional[Dict[str, Any]] = None,
+                feats: Optional[torch.Tensor] = None
                 ) -> Dict[str, Any]:
         """The images' dtype sets the image side's and the decoder's; uint8
         images are normalized with the module-level BGR mean and std and run
         in bf16 (streampetr.py:233-239). `train` turns on the decoder's
         dropouts, drawn from `generator` on the activations' device.
         `quant_backbone`, a tree of ``ops/quant.py:quantize_petr_backbone``,
-        replaces the bf16 backbone with the int8 one."""
+        replaces the bf16 backbone with the int8 one. `feats`, the output of a
+        ``forward_towers`` call the caller made, takes the place of that call."""
+        if feats is None:
+            feats = self.forward_towers(images, quant_backbone)
+        return self.pts_bbox_head(feats, lidar2img, state, prev_exists,
+                                  timestamp, ego_pose, ego_pose_inv, train,
+                                  generator)
+
+    def forward_towers(self, images: torch.Tensor,
+                       quant_backbone: Optional[Dict[str, Any]] = None
+                       ) -> torch.Tensor:
+        """The image side of the frame: (B, N, H, W, 3) images normalized,
+        the backbone (bf16, or int8 with `quant_backbone`) and the FPN at
+        its one level -> (B * N, C, H16, W16)."""
         c = self.cfg
         b, n, h, w, _ = images.shape
         with span('model.backbone'):
             if not images.is_floating_point():
-                mean = torch.tensor(IMG_MEAN, device=images.device)
-                std = torch.tensor(IMG_STD, device=images.device)
+                mean = constant(IMG_MEAN, torch.float32, images.device)
+                std = constant(IMG_STD, torch.float32, images.device)
                 images = ((images.float() - mean) / std).to(torch.bfloat16)
             x = images.reshape(b * n, h, w, 3)
             if quant_backbone is not None:
@@ -259,10 +274,7 @@ class StreamPETR(nn.Module):
             else:
                 stages = self.img_backbone(x.permute(0, 3, 1, 2))
         with span('model.neck'):
-            lvl = self.img_neck(stages, level=c.feat_level)
-        return self.pts_bbox_head(lvl, lidar2img, state, prev_exists,
-                                  timestamp, ego_pose, ego_pose_inv, train,
-                                  generator)
+            return self.img_neck(stages, level=c.feat_level)
 
 
 def init_petr_state(batch: int, cfg: StreamPETRConfig,

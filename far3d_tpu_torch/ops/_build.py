@@ -38,7 +38,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # Launches of each kernel in this process; a wrapper adds one where it
-# launches its kernel and nowhere else.
+# launches its kernel (or records the launch into a CUDA graph being
+# captured) and nowhere else. A frame replayed from CUDA graphs
+# (``utils/graphs.py``) calls no wrapper and adds nothing: count its
+# kernels from a profiler's trace, or by its capture
+# (``GraphedStep.capture_launches``).
 launch_counts: Dict[str, int] = {}
 
 # What each build printed (nvcc's -Xptxas -v report) and how long it took.

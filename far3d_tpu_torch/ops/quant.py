@@ -47,6 +47,7 @@ from torch import nn
 
 from ..config import BackboneConfig
 from ..models.vovnet import VoVNet
+from ..utils.constants import constant
 from .qconv import out_size, qconv
 
 POOL_FILL = -128          # the int8 max pool's padding value
@@ -201,8 +202,8 @@ def _quantize_backbone(backbone: VoVNet, img_mean: Sequence[float],
     """Calibrate `backbone` on image batches (uint8 or normalized float,
     (B, N, H, W, 3)) and build its quantized tree."""
     device = next(backbone.parameters()).device
-    mean = torch.tensor(img_mean, device=device)
-    std = torch.tensor(img_std, device=device)
+    mean = constant(img_mean, torch.float32, device)
+    std = constant(img_std, torch.float32, device)
     batches = []
     for img in calib_images:
         img = torch.as_tensor(img).to(device)

@@ -38,6 +38,8 @@ from ..models.farhead import TemporalState
 from ..models.streampetr import StreamPETR, StreamPETRConfig, init_petr_state
 from ..ops import grid_mask
 from ..parallel import mesh
+from ..utils.constants import constant
+from ..utils.graphs import GraphedStep
 from ..utils.spans import span
 from .losses3d import farhead_loss
 from .optim import clip_and_step, ema_update, make_optimizer
@@ -82,8 +84,8 @@ def petr_step_from_noise(cfg: StreamPETRConfig, train_cfg: TrainConfig,
     with span('train.inputs'):
         images = batch['images']
         if not images.is_floating_point():
-            mean = torch.tensor(IMG_MEAN, device=dev)
-            std = torch.tensor(IMG_STD, device=dev)
+            mean = constant(IMG_MEAN, torch.float32, dev)
+            std = constant(IMG_STD, torch.float32, dev)
             images = (images.float() - mean) / std
         if noise.get('grid_mask') is not None:
             images = grid_mask.apply(images, **noise['grid_mask'])
@@ -136,23 +138,21 @@ def make_petr_infer_step(cfg: StreamPETRConfig):
     (petr_runner.py:58-72): ``infer_step(model, tstate, batch,
     quant_tree=None) -> (detections, tstate)``; `quant_tree`
     (``ops/quant.py:quantize_petr_backbone``) serves with the int8
-    backbone."""
+    backbone. On a card the step replays a frame from CUDA graphs once it
+    has run one of the same shapes (``utils/graphs.py:GraphedStep``)."""
 
-    @torch.inference_mode()
-    def infer_step(model: StreamPETR, tstate: TemporalState,
-                   batch: Dict[str, torch.Tensor], quant_tree=None):
-        with span('serve.step'):
-            out = model(images=batch['images'], lidar2img=batch['lidar2img'],
-                        state=tstate, prev_exists=batch['prev_exists'],
-                        timestamp=batch['timestamp'],
-                        ego_pose=batch['ego_pose'],
-                        ego_pose_inv=batch['ego_pose_inv'],
-                        quant_backbone=quant_tree)
-            with span('serve.decode'):
-                dets = decode_boxes(out['all_cls_scores'][-1],
-                                    out['all_bbox_preds'][-1],
-                                    out['query_valid'], cfg.max_decode_num,
-                                    cfg.post_center_range)
+    def frame(model: StreamPETR, tstate: TemporalState,
+              batch: Dict[str, torch.Tensor], quant_tree=None, feats=None):
+        out = model(images=batch['images'], lidar2img=batch['lidar2img'],
+                    state=tstate, prev_exists=batch['prev_exists'],
+                    timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
+                    ego_pose_inv=batch['ego_pose_inv'],
+                    quant_backbone=quant_tree, feats=feats)
+        with span('serve.decode'):
+            dets = decode_boxes(out['all_cls_scores'][-1],
+                                out['all_bbox_preds'][-1],
+                                out['query_valid'], cfg.max_decode_num,
+                                cfg.post_center_range)
         return dets, out['state']
 
-    return infer_step
+    return GraphedStep(frame)

@@ -46,6 +46,8 @@ from ..models.farhead import TemporalState, init_state
 from ..models.heads2d import make_priors
 from ..ops import grid_mask
 from ..parallel import mesh
+from ..utils.constants import constant
+from ..utils.graphs import GraphedStep
 from ..utils.spans import span
 from .dn import build_queries, draw_noise
 from .losses2d import yolox_loss
@@ -105,8 +107,8 @@ def step_from_noise(cfg: Far3DConfig, state: TrainState,
         if not images.is_floating_point():
             # uint8 transport: normalize before the grid mask, so masked
             # cells are 0 after normalization (step.py:101-107)
-            mean = torch.tensor(cfg.data.img_mean, device=dev)
-            std = torch.tensor(cfg.data.img_std, device=dev)
+            mean = constant(cfg.data.img_mean, torch.float32, dev)
+            std = constant(cfg.data.img_std, torch.float32, dev)
             images = (images.float() - mean) / std
         if noise.get('grid_mask') is not None:
             images = grid_mask.apply(images, **noise['grid_mask'])
@@ -185,24 +187,23 @@ def make_infer_step(cfg: Far3DConfig):
     tstate)``. `batch` holds the model inputs (images uint8, or normalized in
     any float dtype) on the model's device; the detections are
     ``decode_detections``'. `quant_tree` (``ops/quant.py``) runs the int8
-    backbone in place of the bf16 one."""
+    backbone in place of the bf16 one. On a card the step replays a frame
+    from CUDA graphs once it has run one of the same shapes
+    (``utils/graphs.py:GraphedStep``)."""
 
-    @torch.inference_mode()
-    def infer_step(model: Far3D, tstate: TemporalState,
-                   batch: Dict[str, torch.Tensor], quant_tree=None):
-        with span('serve.step'):
-            out = model(images=batch['images'], lidar2img=batch['lidar2img'],
-                        intrinsics=batch['intrinsics'],
-                        extrinsics=batch['extrinsics'], state=tstate,
-                        prev_exists=batch['prev_exists'],
-                        timestamp=batch['timestamp'],
-                        ego_pose=batch['ego_pose'],
-                        ego_pose_inv=batch['ego_pose_inv'],
-                        quant_backbone=quant_tree)
-            with span('serve.decode'):
-                dets = decode_detections(out['all_cls_scores'][-1],
-                                         out['all_bbox_preds'][-1],
-                                         out['query_valid'], cfg)
+    def frame(model: Far3D, tstate: TemporalState,
+              batch: Dict[str, torch.Tensor], quant_tree=None, feats=None):
+        out = model(images=batch['images'], lidar2img=batch['lidar2img'],
+                    intrinsics=batch['intrinsics'],
+                    extrinsics=batch['extrinsics'], state=tstate,
+                    prev_exists=batch['prev_exists'],
+                    timestamp=batch['timestamp'], ego_pose=batch['ego_pose'],
+                    ego_pose_inv=batch['ego_pose_inv'],
+                    quant_backbone=quant_tree, feats=feats)
+        with span('serve.decode'):
+            dets = decode_detections(out['all_cls_scores'][-1],
+                                     out['all_bbox_preds'][-1],
+                                     out['query_valid'], cfg)
         return dets, out['state']
 
-    return infer_step
+    return GraphedStep(frame)

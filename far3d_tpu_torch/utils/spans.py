@@ -13,7 +13,9 @@ host was in:
 
 - ``serve.step``, ``serve.decode``: a streaming inference step
   (``train/step.py:make_infer_step``, ``train/petr_step.py``) and its
-  NMS-free decode;
+  NMS-free decode; ``serve.replay``, a frame replayed from CUDA graphs, and
+  ``serve.capture``, a frame key's warm-up and capture
+  (``utils/graphs.py``);
 - ``model.backbone`` (the uint8 normalization, the int8 path's input
   quantization and the backbone), ``model.neck``, ``model.head2d`` (Far3D's
   YOLOX head and depth net), ``model.queries`` (from the towers to the
