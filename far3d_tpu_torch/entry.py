@@ -107,14 +107,20 @@ def train_entry(cfg: Optional[Far3DConfig] = None, device=None, seed: int = 0):
 def build_petr_model(cfg, device, seed: int = 0,
                      weights: Optional[Dict[str, torch.Tensor]] = None):
     """StreamPETR on `device` with `weights` (default: seeded random ones),
-    allocated once, on the target device."""
+    allocated once, on the target device; a ``StreamPETRViTConfig`` builds
+    the ViT model (``models/streampetr_vit.py``)."""
     from .models.streampetr import StreamPETR
+    from .models.streampetr_vit import (StreamPETRViT, StreamPETRViTConfig,
+                                        random_vit_petr_state_dict)
     from .utils.convert import random_petr_state_dict
+    vit = isinstance(cfg, StreamPETRViTConfig)
     with torch.device('meta'):
-        model = StreamPETR(cfg)
+        model = (StreamPETRViT if vit else StreamPETR)(cfg)
     model = model.to_empty(device=device)
-    model.load_state_dict(random_petr_state_dict(cfg, seed)
-                          if weights is None else weights)
+    if weights is None:
+        weights = (random_vit_petr_state_dict if vit
+                   else random_petr_state_dict)(cfg, seed)
+    model.load_state_dict(weights)
     return model.eval()
 
 

@@ -261,11 +261,7 @@ class StreamPETR(nn.Module):
         c = self.cfg
         b, n, h, w, _ = images.shape
         with span('model.backbone'):
-            if not images.is_floating_point():
-                mean = constant(IMG_MEAN, torch.float32, images.device)
-                std = constant(IMG_STD, torch.float32, images.device)
-                images = ((images.float() - mean) / std).to(torch.bfloat16)
-            x = images.reshape(b * n, h, w, 3)
+            x = normalized(images).reshape(b * n, h, w, 3)
             if quant_backbone is not None:
                 from ..ops.quant import quant_vovnet_forward, quantize_input
                 stages = quant_vovnet_forward(
@@ -275,6 +271,16 @@ class StreamPETR(nn.Module):
                 stages = self.img_backbone(x.permute(0, 3, 1, 2))
         with span('model.neck'):
             return self.img_neck(stages, level=c.feat_level)
+
+
+def normalized(images: torch.Tensor) -> torch.Tensor:
+    """uint8 images normalized with the module-level BGR mean and std, in
+    bf16; floating images as they are."""
+    if images.is_floating_point():
+        return images
+    mean = constant(IMG_MEAN, torch.float32, images.device)
+    std = constant(IMG_STD, torch.float32, images.device)
+    return ((images.float() - mean) / std).to(torch.bfloat16)
 
 
 def init_petr_state(batch: int, cfg: StreamPETRConfig,

@@ -231,8 +231,13 @@ def quantize_petr_backbone(model, calib_images: Sequence[torch.Tensor]
     209-225): the same calibration, folded with the module-level
     ``IMG_MEAN`` / ``IMG_STD`` that the model applies to uint8 images. Pass
     the tree as ``StreamPETR.forward(..., quant_backbone=tree)`` or
-    ``eval.petr_runner.run_inference_petr(..., quant_tree=tree)``."""
+    ``eval.petr_runner.run_inference_petr(..., quant_tree=tree)``. Only
+    VoVNet has an int8 path: a ViT model is refused by name."""
     from ..config import IMG_MEAN, IMG_STD
+    if not isinstance(model.img_backbone, VoVNet):
+        raise TypeError(f'quantize_petr_backbone: {type(model).__name__} '
+                        f'has a {type(model.img_backbone).__name__} '
+                        'backbone, which has no int8 path (VoVNet only)')
     return _quantize_backbone(model.img_backbone, IMG_MEAN, IMG_STD,
                               calib_images)
 

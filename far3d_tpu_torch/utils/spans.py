@@ -17,9 +17,13 @@ host was in:
   ``serve.capture``, a frame key's warm-up and capture
   (``utils/graphs.py``);
 - ``model.backbone`` (the uint8 normalization, the int8 path's input
-  quantization and the backbone), ``model.neck``, ``model.head2d`` (Far3D's
-  YOLOX head and depth net), ``model.queries`` (from the towers to the
-  decoder: proposals, lifting, memory alignment, embeddings, the mask),
+  quantization and the backbone; inside the ViT of ``models/vit.py``,
+  ``model.backbone.patch`` around the patch embedding and position and
+  ``model.backbone.window`` or ``model.backbone.global`` around each block,
+  which a frame replayed from CUDA graphs does not show), ``model.neck``,
+  ``model.head2d`` (Far3D's YOLOX head and depth net), ``model.queries``
+  (from the towers to the decoder: proposals, lifting, memory alignment,
+  embeddings, the mask),
   ``model.decoder`` with a ``model.decoder.layer`` around each layer,
   ``model.branches`` (class and box branches, box decoding) and
   ``model.memory`` (the memory written for the next frame), in both families,

@@ -11,8 +11,9 @@ writes), bitwise against the eager frames; and ``graph_frames.serve``
 tiny replayed frames.
 
 On the card (``cuda`` marker; skipped without one): both families at full
-size, 40 frames through one graphed step against a fresh eager step each
-frame, bitwise. This file imports neither jax nor the JAX package; on a
+size, and StreamPETR with the EVA-02 ViT-L backbone at 6 x 800x1600, 40
+frames through one graphed step against a fresh eager step each frame,
+bitwise. This file imports neither jax nor the JAX package; on a
 machine with a card and without jax:
 
     python -m pytest --noconftest tests/test_torch_port_graphs.py -q
@@ -37,6 +38,7 @@ from far3d_tpu_torch.models.farhead import init_state
 from far3d_tpu_torch.models.streampetr import (StreamPETRConfig,
                                                init_petr_state,
                                                tiny_petr_config)
+from far3d_tpu_torch.models.streampetr_vit import StreamPETRViTConfig
 from far3d_tpu_torch.ops import _build
 from far3d_tpu_torch.train.petr_step import make_petr_infer_step
 from far3d_tpu_torch.train.step import make_infer_step
@@ -497,10 +499,12 @@ FRAMES, SCENES, HOOKED = 40, (0, 14, 29), (9, 23)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('family', FAMILIES)
+@pytest.mark.parametrize('family', FAMILIES + ('streampetr_vit',))
 def test_graphed_frames_are_bitwise_the_eager_ones_on_the_card(family,
                                                                 cuda_device):
-    """Full size (Far3D with its int8 backbone, StreamPETR in bf16):
+    """Full size (Far3D with its int8 backbone, StreamPETR in bf16, and
+    StreamPETR with the ViT-L backbone in bf16, which launches no port
+    kernel):
     FRAMES frames with scene changes at SCENES and a hooked frame at each
     of HOOKED through one graphed step, against a fresh eager step each
     frame, each side carrying its own state: detections and every state
@@ -512,6 +516,8 @@ def test_graphed_frames_are_bitwise_the_eager_ones_on_the_card(family,
     run on the card, each launched by a ``cudaGraphLaunch``."""
     if family == 'far3d':
         rig = Rig(family, Far3DConfig(), cuda_device, quant=True)
+    elif family == 'streampetr_vit':
+        rig = Rig('streampetr', StreamPETRViTConfig(), cuda_device)
     else:
         rig = Rig(family, StreamPETRConfig(), cuda_device)
     step = rig.make_step(rig.cfg)
