@@ -2,15 +2,16 @@
 """Chip smoke test of the PyTorch port (far3d_tpu_torch) on one NVIDIA card:
 Far3D (phases 1-17), StreamPETR (phase 18), data parallelism and camera
 sharding (phase 19), training at scale (phase 20), the JPEG codec and the
-diagnostic and visualization tools (phase 21).
+diagnostic and visualization tools (phase 21), the ViT's SwiGLU tail
+(phase 22).
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
-     msda_bwd.cu, osa_fused.cu, qconv.cu, ese_requant.cu), one nvcc each,
-     all started together;
+     msda_bwd.cu, osa_fused.cu, qconv.cu, ese_requant.cu, swiglu_tail.cu),
+     one nvcc each, all started together;
   3. kernel vs plain version on the shared cases of tests/_msda_cases.py
      (f32: edge cases, crowded, production_like, rows_past_int16,
      sparse_pairs; msda_fwd, and msda_dval and msda_dattn within BWD_TOL),
@@ -182,6 +183,24 @@ Phases, each raising on failure:
      returns, its numbers finite, every file it writes decodes, and each
      tool that runs the detector launches msda_fwd 6 times a frame it
      runs; ms a frame of each.
+ 22. the ViT's SwiGLU tail (csrc/swiglu_tail.cu): (a) StreamPETR with the
+     EVA-02 ViT-L backbone at full StreamPETRViTConfig() width (6 x
+     800x1600, bf16, the streampetr_vitl_nusc cell's model), built by
+     build_petr_model and served by make_petr_infer_step: a frame eager, a
+     frame captured, then VIT_FRAMES replayed frames under the profiler
+     with the launch counters zeroed just before; swiglu_tail kernels on
+     the card counted by name (one a block, all launched by a
+     cudaGraphLaunch, none through the wrappers), the capture's own count,
+     ms a frame of the replays unprofiled; (b) the kernel at the cell's
+     shape, 30,000 tokens of 2,730 channels in bf16: against the plain
+     tail (swiglu_tail_reference; at most one bf16 step apart, the share
+     of equal outputs printed), the padded channels zero, two calls
+     bitwise equal; its device ms warm and after an L2 flush beside its
+     bound (the halves read and w3's input written at 3.35 TB/s), the
+     plain tail's and a library yardstick's (F.silu(a) * g then
+     F.layer_norm on contiguous halves, which the port never calls).
+     Alone: python3 -c 'import chip_smoke as c;
+     c.swiglu_tail_phase(c.card_line())'.
 Then it prints a JSON line of phase 18's other readings, one of phase 19's,
 one of phase 20's, one of phase 21's, one JSON line of kernels and, last,
 the device line.
@@ -233,12 +252,14 @@ from far3d_tpu_torch.entry import (build_model, build_petr_model, entry,
                                    train_entry)
 from far3d_tpu_torch.eval import runner as eval_runner
 from far3d_tpu_torch.eval.runner import collect_and_evaluate, run_inference
+from far3d_tpu_torch.models import vit
 from far3d_tpu_torch.models.farhead import init_state
 from far3d_tpu_torch.models.streampetr import (StreamPETRConfig,
                                                init_petr_state,
                                                tiny_petr_config)
+from far3d_tpu_torch.models.streampetr_vit import StreamPETRViTConfig
 from far3d_tpu_torch.ops import (_build, ese_requant_cuda, msda_cuda, osa,
-                                 osa_cuda, qconv_cuda, quant)
+                                 osa_cuda, qconv_cuda, quant, swiglu_cuda)
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.ops.qconv import (out_size, qconv_reference,
@@ -319,6 +340,12 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 on the tensor cores
 SLEEP_CYCLES_PER_S = 1.98e9    # H100 SXM top SM clock, for torch.cuda._sleep
+# Phase 22: the SwiGLU tail of the ViT cell's frame, 6 cameras of 50 x 100
+# tokens and EVA-02-L's hidden width, 24 tails a frame. The kernel sums the
+# LayerNorm's moments in another order than PyTorch, so an output may round
+# one bf16 step apart (of its magnitude, or of 2^-6 near zero).
+SWIGLU_ROWS, SWIGLU_HID, SWIGLU_EPS = 30000, 2730, 1e-6
+VIT_FRAMES = 4                 # phase 22a: replayed ViT frames profiled
 EDGE_TOL = dict(rtol=1e-5, atol=1e-5)
 # Production shape: both sides accumulate in f32 from the same bf16 rows and
 # f32 weights and round once to bf16; the sums' orders differ, so one output
@@ -1707,6 +1734,132 @@ def ese_tail_check_and_times(tails, q, bcfg, card):
         f'plain {tot["plain_ms"]:.4f} ms; the PyTorch sequence '
         f'{tot["library_ms"]:.4f} ms [{card}]')
     return dict(tot, equal_share=share, max_diff=max_diff)
+
+
+def vit_frames_phase(card):
+    """Phase 22a (see the module docstring): the swiglu_tail kernels that
+    the ViT cell's replayed frames run on the card."""
+    dev = torch.device('cuda')
+    cfg = StreamPETRViTConfig()
+    depth = cfg.backbone.depth
+    t0 = time.perf_counter()
+    step, (state0,) = petr_entry(cfg)
+    # frame 0 runs eagerly, frame 1 warms up and captures
+    petr_frames(step, state0, None, dev, cfg, frames=2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    infer = step.infer
+    _build.launch_counts[swiglu_cuda.NAME] = 0
+    # a replayed frame calls no launch-counting wrapper: the profiler counts
+    # the kernels that the replays run on the card, by name
+    _, run, replayed = port_kernels(
+        lambda: petr_frames(step, state0, None, dev, cfg, frames=VIT_FRAMES),
+        [swiglu_cuda.NAME])
+    wrapped = _build.launch_counts[swiglu_cuda.NAME]
+    launches = run.get(swiglu_cuda.NAME, 0)
+    captured = list(infer.capture_launches.values())
+    if (wrapped or launches != VIT_FRAMES * depth
+            or replayed.get(swiglu_cuda.NAME, 0) != launches
+            or captured != [{swiglu_cuda.NAME: depth}]):
+        raise AssertionError(
+            f'ViT frames: {launches} swiglu_tail kernels on the card in '
+            f'{VIT_FRAMES} frames ({replayed} replayed, {wrapped} through '
+            f'the wrappers), the capture counted {captured}; expected '
+            f'{depth} a frame, all replayed')
+    times, dets = petr_frames(step, state0, None, dev, cfg, frames=VIT_FRAMES)
+    if (infer.eager_frames, infer.captures) != (1, 1):
+        raise AssertionError(f'ViT frames: {infer.eager_frames} eager, '
+                             f'{infer.captures} captures')
+    per_frame = launches / VIT_FRAMES
+    ms = statistics.median(times)
+    log(f'  StreamPETRViTConfig() ({cfg.num_cams} cameras at '
+        f'{cfg.input_hw[0]}x{cfg.input_hw[1]}, {depth} ViT blocks, bf16) '
+        f'built and its frame captured in {setup_s:.1f} s; {VIT_FRAMES} '
+        f'replayed frames profiled: {launches} swiglu_tail kernels on the '
+        f'card ({per_frame:g} a frame, all under a cudaGraphLaunch, '
+        f'{wrapped} through the wrappers), the capture counted {captured}; '
+        f'{ms:.2f} ms a replayed frame unprofiled (median of {VIT_FRAMES}); '
+        f'top score {dets["scores"][0, 0].item():.4f} [{card}]')
+    del step, state0, infer
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_frame=per_frame, frames=VIT_FRAMES,
+                ms_per_frame=ms)
+
+
+def swiglu_tail_phase(card):
+    """Phase 22 (see the module docstring); returns the kernels line's
+    entry."""
+    frames = vit_frames_phase(card)
+    dev = torch.device('cuda')
+    hid = SWIGLU_HID
+    width = hid + -hid % 8
+    gen = torch.Generator(device=dev).manual_seed(22)
+    ag = (2 * torch.randn(SWIGLU_ROWS, 2 * width, device=dev,
+                          generator=gen)).bfloat16()
+    weight = (1 + 0.1 * torch.randn(hid, device=dev, generator=gen)).bfloat16()
+    bias = (0.1 * torch.randn(hid, device=dev, generator=gen)).bfloat16()
+    args = (ag, weight, bias, SWIGLU_EPS)
+    before = _build.launch_counts[swiglu_cuda.NAME]
+    got, again = vit.swiglu_tail(*args), vit.swiglu_tail(*args)
+    want = vit.swiglu_tail_reference(*args)
+    torch.cuda.synchronize()
+    if _build.launch_counts[swiglu_cuda.NAME] - before != 2:
+        raise AssertionError('swiglu_tail: not one launch a call')
+    if not torch.equal(got, again):
+        raise AssertionError('swiglu_tail: two calls differ')
+    if got[:, hid:].any():
+        raise AssertionError('swiglu_tail: a padded channel is not zero')
+    d = (got[:, :hid].float() - want[:, :hid].float()).abs()
+    mag = want[:, :hid].float().abs().clamp_min(2.0 ** -6)
+    steps = float((d / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+    equal_share = float((d == 0).float().mean())
+    if steps > 1:
+        raise AssertionError(f'swiglu_tail: {steps:.3f} bf16 steps from the '
+                             'plain tail')
+    a = ag[:, :hid].contiguous()
+    g = ag[:, width:width + hid].contiguous()
+    nbytes = SWIGLU_ROWS * (2 * hid + width) * ag.element_size()
+
+    def kernel():
+        vit.swiglu_tail(*args)
+
+    def plain():
+        vit.swiglu_tail_reference(*args)
+
+    def library():
+        F.layer_norm(F.silu(a) * g, (hid,), weight, bias, SWIGLU_EPS)
+
+    t = dict(ms=device_ms(kernel, 20), cold=cold_l2_ms(kernel, 10),
+             plain_ms=device_ms(plain, 10), library_ms=device_ms(library, 10),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f'  swiglu_tail ({SWIGLU_ROWS} x {hid} bf16, {nbytes / 1e6:.1f} MB): '
+        f'{t["ms"]:.4f} ms ({t["cold"]:.4f} after an L2 flush), bound '
+        f'{t["bound_ms"]:.4f} ms (bytes, {100 * t["bound_ms"] / t["ms"]:.1f}%'
+        f' of it), plain tail {t["plain_ms"]:.4f}, F.silu * g + '
+        f'F.layer_norm {t["library_ms"]:.4f}; {equal_share:.6f} of outputs '
+        f'equal to the plain tail\'s, at most {steps:.2f} bf16 steps apart '
+        f'[{card}]')
+    return {
+        'name': swiglu_cuda.NAME,
+        'source': 'far3d_tpu_torch/csrc/swiglu_tail.cu',
+        'replaces': None,
+        'replaces_note': 'no Pallas kernel: the JAX package has no ViT; the '
+                         'SiLU gate, ffn_ln and the pad the port ran as five '
+                         'PyTorch passes',
+        'launches': frames['launches'], 'frames_profiled': frames['frames'],
+        'launches_per_frame': frames['per_frame'],
+        'ms_per_frame_vit': frames['ms_per_frame'],
+        'max_bf16_steps': steps, 'plain_equal_share': equal_share,
+        'bitwise_repeatable': True,
+        'ms': t['ms'], 'kernel_ms': t['ms'], 'ms_cold_l2': t['cold'],
+        'plain_ms': t['plain_ms'],
+        'plain': 'swiglu_tail_reference: F.silu, the gate product and '
+                 'F.layer_norm on strided halves, then F.pad',
+        'bound_ms': t['bound_ms'], 'bound_by': 'bytes',
+        'gb_per_call': nbytes / 1e9,
+        'library_ms': t['library_ms'],
+        'library': 'F.silu(a) * g then F.layer_norm on contiguous halves',
+    }
 
 
 def device_busy(fn, reps=3):
@@ -3481,6 +3634,9 @@ def main():
     tools = tools_phase(data_dir, nusc_dir, card)
     data_tmp.cleanup()
     nusc_tmp.cleanup()
+
+    log('== phase 22: the ViT\'s SwiGLU tail at the ViT cell\'s shape')
+    swiglu = swiglu_tail_phase(card)
     dp_launches = {
         name: {'19a_nccl_world1': dp_a['launches'][name],
                '19b_rank0': dp_b[0]['launches'][name],
@@ -3665,7 +3821,7 @@ def main():
         'streampetr_library_ms': petr['tail']['library_ms'],
         'streampetr_torch_sequence_equal_share':
             petr['tail']['equal_share'],
-    }]}
+    }, swiglu]}
     log('StreamPETR (phase 18): ' + json.dumps({
         'cross_attention': petr['attn'],
         'bf16_frame_busy_ms': petr['bf16_frame_busy_ms'],

@@ -9,7 +9,9 @@ pretraining grid and resized bicubically to the image's grid, then
 - attention: one ``qkv`` projection without bias, separate ``q_bias`` and
   ``v_bias`` (k has none), 2D rotary position embedding on q and k, softmax
   attention, a sub-LayerNorm ``inner_attn_ln``, ``proj``;
-- a SwiGLU MLP with a sub-LayerNorm: ``w3(ffn_ln(silu(w1 x) * w2 x))``;
+- a SwiGLU MLP with a sub-LayerNorm: ``w3(ffn_ln(silu(w1 x) * w2 x))``,
+  its tail between the two matmuls one hand-written kernel on the card
+  (``swiglu_tail``);
 - the blocks of ``global_blocks`` attend over the whole grid of a camera;
   the others over ``window_size`` windows of the grid zero-padded at the
   bottom and right, as ViTDet pads: the padded rows are zeros after
@@ -158,12 +160,35 @@ class Attention(nn.Module):
         return self.proj(self.inner_attn_ln(o))
 
 
+def swiglu_tail_reference(ag: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The plain SwiGLU tail: ``ffn_ln(silu(a) * g)`` from the ``w12``
+    product ag (..., 2 W), whose halves a and g each hold the len(weight)
+    real channels padded to W, padded in turn with zeros to (..., W), w3's
+    input."""
+    hid, width = weight.shape[0], ag.shape[-1] // 2
+    a, g = ag[..., :hid], ag[..., width:width + hid]
+    h = F.layer_norm(F.silu(a) * g, (hid,), weight, bias, eps)
+    return F.pad(h, (0, width - hid))
+
+
+def swiglu_tail(ag: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """``swiglu_tail_reference`` for a tensor on the CPU, the hand-written
+    kernel (``ops/swiglu_cuda.py``) for a CUDA one."""
+    if ag.is_cuda:
+        from ..ops.swiglu_cuda import swiglu_tail_cuda
+        return swiglu_tail_cuda(ag, weight, bias, eps)
+    return swiglu_tail_reference(ag, weight, bias, eps)
+
+
 class SwiGLU(nn.Module):
     """``w3(ffn_ln(silu(w1 x) * w2 x))``. The hidden width is padded with
     zero rows of the weights to a multiple of 8 inside the matmuls (2,730
     to 2,736), so that their rows are 16-byte aligned in bf16 (the card's
-    fast matmuls need that); the padding is cut off before ``ffn_ln`` and
-    multiplies zero columns of ``w3``."""
+    fast matmuls need that); ``swiglu_tail`` leaves the padding out of
+    ``ffn_ln`` and writes zeros there, which multiply zero columns of
+    ``w3``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -174,16 +199,15 @@ class SwiGLU(nn.Module):
         self.w3 = Linear(hid, c)
 
     def forward(self, x):
-        hid = self.w1.out_features
-        pad = -hid % 8
+        pad = -self.w1.out_features % 8
         w12 = torch.cat([F.pad(self.w1.weight, (0, 0, 0, pad)),
                          F.pad(self.w2.weight, (0, 0, 0, pad))]).to(x.dtype)
         b12 = torch.cat([F.pad(self.w1.bias, (0, pad)),
                          F.pad(self.w2.bias, (0, pad))]).to(x.dtype)
-        a, g = F.linear(x, w12, b12).split(hid + pad, dim=-1)
-        h = self.ffn_ln(F.silu(a[..., :hid]) * g[..., :hid])
-        return F.linear(F.pad(h, (0, pad)),
-                        F.pad(self.w3.weight, (0, pad)).to(x.dtype),
+        h = swiglu_tail(F.linear(x, w12, b12),
+                        self.ffn_ln.weight.to(x.dtype),
+                        self.ffn_ln.bias.to(x.dtype), self.ffn_ln.eps)
+        return F.linear(h, F.pad(self.w3.weight, (0, pad)).to(x.dtype),
                         self.w3.bias.to(x.dtype))
 
 

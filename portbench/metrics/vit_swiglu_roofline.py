@@ -1,0 +1,18 @@
+"""The ViT backbone's SwiGLU tail's share of its roofline in the traced
+serving window: the least time of one frame's tails (``harness/swiglu.py``:
+their bytes at 3.35 TB/s), times the traced frames, over the device time
+of the kernels named in ``kernels/vit_swiglu/`` whose host launch falls
+inside the program's ``model.backbone`` label (in a replayed frame, the
+towers graph's launch). Nothing where no such kernel ran."""
+
+from harness import swiglu, vit
+
+
+def read(ctx):
+    found = vit.kernels_under(ctx.traced['trace'], ctx.kernels('vit_swiglu'),
+                              'model.backbone')
+    if not found or not found[1]:
+        return None
+    fam = ctx.family
+    least = swiglu.least_seconds(ctx.backbone, fam.num_cams, fam.input_hw)
+    return 100.0 * least * ctx.traced['frames'] / found[0]
