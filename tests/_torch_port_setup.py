@@ -26,6 +26,13 @@ from far3d_tpu_torch.utils.convert import random_reference_state_dict
 
 TOL = dict(rtol=1e-3, atol=2e-3)
 
+# One intra-op thread in every test process, at import, so before any test of
+# a pytest-xdist worker (each collects every module first). Torch's default
+# pool of one thread a core, in each of several workers, oversubscribes the
+# cores many times over, and the tiny tests then wait on each other's spinning
+# threads; portbench/run.py sets the same count for the same reason.
+torch.set_num_threads(1)
+
 
 def _widen(mod, cfg):
     return dataclasses.replace(

@@ -304,3 +304,13 @@ def test_loader_without_a_card_raises(monkeypatch, loader):
                                             else ())
     with _no_card(monkeypatch):
         getattr(mod, loader)(*args)
+
+
+def test_port_tests_run_on_one_torch_thread():
+    """The port's test helper leaves torch one intra-op thread in its process.
+    Under pytest-xdist every worker would otherwise keep a pool of one thread
+    a core: on an 8-core CPU, with five workers, the graph test
+    test_replayed_frames_are_bitwise_the_eager_ones[far3d] took 196.7 s, and
+    2.77 s with one thread a worker (3.45 s alone in one process)."""
+    import _torch_port_setup  # noqa: F401
+    assert torch.get_num_threads() == 1

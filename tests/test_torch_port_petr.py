@@ -18,11 +18,13 @@ both sides, sums in other orders), unless a test says otherwise.
   backbone's output from the same amax;
 * two training steps against ``make_petr_train_step`` (dropout 0, grid mask
   on with the JAX step's draws, the auction on both sides): losses, grad
-  norm, Adam's first moments, updated parameters, the next temporal state;
+  norm, Adam's first moments, updated parameters (the biases added to every
+  key, whose gradient is zero, held to that), the next temporal state;
 * one optimizer step with ``layer_decay = 0.8`` against optax's.
 """
 
 import dataclasses
+import re
 
 import flax.linen as fnn
 import jax
@@ -459,7 +461,7 @@ def train_runs(petr_pair):
                                             noise)
         tmetrics.append({k: float(v) for k, v in m.items()})
     return dict(jax=(jstate, jt, jmetrics, jbatch), port=(state, tt, tmetrics),
-                cfg=tc, noises=noises, batch=batch)
+                cfg=tc, train=ttrain, noises=noises, batch=batch)
 
 
 def test_petr_batch_matches_jax(train_runs):
@@ -522,14 +524,19 @@ def _assert_moments(got, want):
     return moved
 
 
-def test_petr_gradients_through_adam_moments(train_runs):
+def _jax_moments(train_runs):
+    """The JAX run's first moments under the port's state-dict keys."""
     jstate = train_runs['jax'][0]
     mu = _moments(('main', 'backbone'), jstate.opt_state[1].inner_states,
                   jstate.params)
     zeros = jax.tree_util.tree_map(lambda x: np.zeros_like(np.asarray(x)),
                                    jstate.stats)
-    want = petr_from_jax_variables({'params': mu, 'stats': zeros},
+    return petr_from_jax_variables({'params': mu, 'stats': zeros},
                                    train_runs['cfg'])
+
+
+def test_petr_gradients_through_adam_moments(train_runs):
+    want = _jax_moments(train_runs)
     state = train_runs['port'][0]
     got = _port_moments(state, state.model)
     _assert_moments(got, want)
@@ -543,16 +550,51 @@ def test_petr_gradients_through_adam_moments(train_runs):
     assert not state.model.pts_bbox_head.pseudo_reference_points.requires_grad
 
 
-def test_petr_updated_parameters(train_runs):
+# The biases added to every key of an attention: each decoder layer's
+# self-attention key and cross-attention k_proj biases, and the frustum PE's
+# output bias (the PE joins the cross attention's keys only).
+KEY_BIAS = re.compile(r'pts_bbox_head\.(decoder\.layer\d+\.'
+                      r'(self_attn\.key|cross_attn\.k_proj)|pe\.pe_fc2)\.bias')
+ROUNDING_FLOOR = 1e-6   # of the run's largest first moment
+
+
+def test_petr_updated_parameters(train_runs, petr_pair):
+    """Every parameter and statistic after the two steps at TOL, but for the
+    KEY_BIAS leaves. A bias added to every key moves each query's logits by
+    one constant, which the softmax cancels, so their gradient is zero in
+    exact arithmetic; AdamW's m / sqrt(v) turns the rounding noise into a
+    full-size step, so their values are noise on both sides, and which
+    noise depends on the summation order (torch's thread count). Each side
+    is held instead to the zero gradient: the leaf's first moment below
+    ROUNDING_FLOOR of the run's largest, and its change over the run within
+    Adam's bound of lr a step (the normalized step is at most 1.0014 lr in
+    two steps at betas 0.9 / 0.999) plus the decoupled weight decay."""
     jstate = train_runs['jax'][0]
+    cfg, train = train_runs['cfg'], train_runs['train']
     want = petr_from_jax_variables(jax.tree_util.tree_map(np.asarray, {
-        'params': jstate.params, 'stats': jstate.stats}), train_runs['cfg'])
-    got = train_runs['port'][0].model.state_dict()
+        'params': jstate.params, 'stats': jstate.stats}), cfg)
+    state = train_runs['port'][0]
+    got = state.model.state_dict()
     assert got.keys() == want.keys()
-    assert int(jstate.step) == train_runs['port'][0].step == STEPS
-    for k in want:
+    assert int(jstate.step) == state.step == STEPS
+    key_bias = {k for k in want if KEY_BIAS.fullmatch(k)}
+    assert len(key_bias) == 2 * cfg.num_layers + 1, sorted(key_bias)
+    for k in sorted(want.keys() - key_bias):
         np.testing.assert_allclose(to_np(got[k]), want[k].numpy(), err_msg=k,
                                    **TOL)
+
+    start = petr_from_jax_variables(petr_pair[2], cfg)
+    for side, mu, end in (('jax', _jax_moments(train_runs), want),
+                          ('port', _port_moments(state, state.model), got)):
+        floor = ROUNDING_FLOOR * max(float(m.abs().max()) for m in mu.values())
+        for k in sorted(key_bias):
+            m = float(mu[k].abs().max())
+            assert m < floor, (side, k, m, floor)
+            p0 = start[k].numpy()
+            bound = STEPS * train.lr * (1.01 + train.weight_decay *
+                                        float(np.abs(p0).max()))
+            moved = float(np.abs(to_np(end[k]) - p0).max())
+            assert moved <= bound, (side, k, moved, bound)
 
 
 def test_petr_next_temporal_state(train_runs):

@@ -7,7 +7,10 @@ JAX step (``make_train_step`` / ``make_petr_train_step``) and one port step
 run on the same batch and draws, dropout 0, the auction matching on both
 sides. The total gradient norm and the 10 parameters with the largest
 gradient norms (by name, unclipped) agree at the composed parity tolerance
-(rtol 1e-3 / atol 2e-3).
+(rtol 1e-3 / atol 2e-3). A tie at the 10th place may break either way: from
+``petr_init_state_dict`` the biases of ``img_neck.lateral_convs.1`` and
+``.2`` have equal reference norms there, and which of the two the port ranks
+10th depends on the summation order, so on torch's thread count.
 
 Both norms are far above the clip norm of 35 from these weights, the JAX
 step's as much as the port's: at step 0 the gradient sits in the zero-kernel
@@ -63,10 +66,17 @@ def unclipped_norms(clipped, total, clip):
 
 
 def hold(got_total, want_total, got, want):
+    """The totals, then the TOP largest parameters of both sides: the same
+    set, except that a parameter tied with the TOP-th at the cut (reference
+    norms within TOL) may stand on one side's list in place of another such;
+    every parameter on either list compared by value."""
     np.testing.assert_allclose(got_total, want_total, **TOL)
     top = sorted(want, key=want.get, reverse=True)[:TOP]
-    assert set(sorted(got, key=got.get, reverse=True)[:TOP]) == set(top)
-    for k in top:
+    got_top = sorted(got, key=got.get, reverse=True)[:TOP]
+    cut = want[top[-1]]
+    for k in set(top) ^ set(got_top):
+        assert np.isclose(want[k], cut, **TOL), (k, want[k], cut)
+    for k in top + sorted(set(got_top) - set(top)):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
     return top
 
