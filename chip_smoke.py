@@ -3,14 +3,15 @@
 Far3D (phases 1-17), StreamPETR (phase 18), data parallelism and camera
 sharding (phase 19), training at scale (phase 20), the JPEG codec and the
 diagnostic and visualization tools (phase 21), the ViT's SwiGLU tail
-(phase 22).
+(phase 22) and its rotation of q and k (phase 23).
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel source of the port (far3d_tpu_torch/csrc/msda_fwd.cu,
-     msda_bwd.cu, osa_fused.cu, qconv.cu, ese_requant.cu, swiglu_tail.cu),
+     msda_bwd.cu, osa_fused.cu, qconv.cu, ese_requant.cu, swiglu_tail.cu,
+     vit_rope.cu),
      one nvcc each, all started together;
   3. kernel vs plain version on the shared cases of tests/_msda_cases.py
      (f32: edge cases, crowded, production_like, rows_past_int16,
@@ -188,19 +189,33 @@ Phases, each raising on failure:
      800x1600, bf16, the streampetr_vitl_nusc cell's model), built by
      build_petr_model and served by make_petr_infer_step: a frame eager, a
      frame captured, then VIT_FRAMES replayed frames under the profiler
-     with the launch counters zeroed just before; swiglu_tail kernels on
-     the card counted by name (one a block, all launched by a
-     cudaGraphLaunch, none through the wrappers), the capture's own count,
-     ms a frame of the replays unprofiled; (b) the kernel at the cell's
-     shape, 30,000 tokens of 2,730 channels in bf16: against the plain
-     tail (swiglu_tail_reference; at most one bf16 step apart, the share
-     of equal outputs printed), the padded channels zero, two calls
-     bitwise equal; its device ms warm and after an L2 flush beside its
-     bound (the halves read and w3's input written at 3.35 TB/s), the
-     plain tail's and a library yardstick's (F.silu(a) * g then
+     with the launch counters zeroed just before; swiglu_tail and vit_rope
+     kernels on the card counted by name (one of each a block, all
+     launched by a cudaGraphLaunch, none through the wrappers), the
+     capture's own count, ms a frame of the replays unprofiled; (b) the
+     kernel at the cell's shape, 30,000 tokens of 2,730 channels in bf16:
+     against the plain tail (swiglu_tail_reference; at most one bf16 step
+     apart, the share of equal outputs printed), the padded channels zero,
+     two calls bitwise equal; its device ms warm and after an L2 flush
+     beside its bound (the halves read and w3's input written at 3.35
+     TB/s), the plain tail's and a library yardstick's (F.silu(a) * g then
      F.layer_norm on contiguous halves, which the port never calls).
      Alone: python3 -c 'import chip_smoke as c;
      c.swiglu_tail_phase(c.card_line())'.
+ 23. the ViT's rotation of q and k (csrc/vit_rope.cu), from phase 22a's
+     frames: at the cell's windowed block (168 windows of 16 x 16 tokens)
+     and global block (6 cameras of 50 x 100), the (2, B, 16, S, 64) bf16
+     view qkv[:2] of a seeded qkv product with the grid's tables: against
+     the plain version (rope_reference, the three PyTorch passes the kernel
+     replaced; at most one bf16 step of the larger of the output's and its
+     products' magnitudes, the share of equal outputs printed), the same
+     strides, no farther than it from the exact rotation of the same
+     inputs (largest and rms error), two calls bitwise equal, one launch a
+     call; its device ms warm and after an L2 flush beside its bound (q and
+     k read and written at 3.35 TB/s), the plain version's and the same
+     three passes' on contiguous q and k (a yardstick the port never
+     calls), each block and a frame's sum. Alone: python3 -c 'import
+     chip_smoke as c; c.vit_rope_phase(c.card_line())'.
 Then it prints a JSON line of phase 18's other readings, one of phase 19's,
 one of phase 20's, one of phase 21's, one JSON line of kernels and, last,
 the device line.
@@ -259,7 +274,8 @@ from far3d_tpu_torch.models.streampetr import (StreamPETRConfig,
                                                tiny_petr_config)
 from far3d_tpu_torch.models.streampetr_vit import StreamPETRViTConfig
 from far3d_tpu_torch.ops import (_build, ese_requant_cuda, msda_cuda, osa,
-                                 osa_cuda, qconv_cuda, quant, swiglu_cuda)
+                                 osa_cuda, qconv_cuda, quant, rope_cuda,
+                                 swiglu_cuda)
 from far3d_tpu_torch.ops.msda import (_corner_data, msda,
                                       msda_backward_reference, msda_reference)
 from far3d_tpu_torch.ops.qconv import (out_size, qconv_reference,
@@ -346,6 +362,7 @@ SLEEP_CYCLES_PER_S = 1.98e9    # H100 SXM top SM clock, for torch.cuda._sleep
 # one bf16 step apart (of its magnitude, or of 2^-6 near zero).
 SWIGLU_ROWS, SWIGLU_HID, SWIGLU_EPS = 30000, 2730, 1e-6
 VIT_FRAMES = 4                 # phase 22a: replayed ViT frames profiled
+VIT_KERNELS = (swiglu_cuda.NAME, rope_cuda.NAME)    # one of each a ViT block
 EDGE_TOL = dict(rtol=1e-5, atol=1e-5)
 # Production shape: both sides accumulate in f32 from the same bf16 rows and
 # f32 weights and round once to bf16; the sums' orders differ, so one output
@@ -1737,8 +1754,8 @@ def ese_tail_check_and_times(tails, q, bcfg, card):
 
 
 def vit_frames_phase(card):
-    """Phase 22a (see the module docstring): the swiglu_tail kernels that
-    the ViT cell's replayed frames run on the card."""
+    """Phase 22a (see the module docstring): the swiglu_tail and vit_rope
+    kernels that the ViT cell's replayed frames run on the card."""
     dev = torch.device('cuda')
     cfg = StreamPETRViTConfig()
     depth = cfg.backbone.depth
@@ -1749,35 +1766,36 @@ def vit_frames_phase(card):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     infer = step.infer
-    _build.launch_counts[swiglu_cuda.NAME] = 0
+    for name in VIT_KERNELS:
+        _build.launch_counts[name] = 0
     # a replayed frame calls no launch-counting wrapper: the profiler counts
     # the kernels that the replays run on the card, by name
     _, run, replayed = port_kernels(
         lambda: petr_frames(step, state0, None, dev, cfg, frames=VIT_FRAMES),
-        [swiglu_cuda.NAME])
-    wrapped = _build.launch_counts[swiglu_cuda.NAME]
-    launches = run.get(swiglu_cuda.NAME, 0)
+        list(VIT_KERNELS))
+    wrapped = sum(_build.launch_counts[name] for name in VIT_KERNELS)
+    launches = {name: run.get(name, 0) for name in VIT_KERNELS}
     captured = list(infer.capture_launches.values())
-    if (wrapped or launches != VIT_FRAMES * depth
-            or replayed.get(swiglu_cuda.NAME, 0) != launches
-            or captured != [{swiglu_cuda.NAME: depth}]):
+    if (wrapped or replayed != launches
+            or launches != {name: VIT_FRAMES * depth for name in VIT_KERNELS}
+            or captured != [{name: depth for name in VIT_KERNELS}]):
         raise AssertionError(
-            f'ViT frames: {launches} swiglu_tail kernels on the card in '
-            f'{VIT_FRAMES} frames ({replayed} replayed, {wrapped} through '
-            f'the wrappers), the capture counted {captured}; expected '
-            f'{depth} a frame, all replayed')
+            f'ViT frames: {launches} kernels on the card in {VIT_FRAMES} '
+            f'frames ({replayed} replayed, {wrapped} through the wrappers), '
+            f'the capture counted {captured}; expected {depth} of each a '
+            'frame, all replayed')
     times, dets = petr_frames(step, state0, None, dev, cfg, frames=VIT_FRAMES)
     if (infer.eager_frames, infer.captures) != (1, 1):
         raise AssertionError(f'ViT frames: {infer.eager_frames} eager, '
                              f'{infer.captures} captures')
-    per_frame = launches / VIT_FRAMES
+    per_frame = {name: n / VIT_FRAMES for name, n in launches.items()}
     ms = statistics.median(times)
     log(f'  StreamPETRViTConfig() ({cfg.num_cams} cameras at '
         f'{cfg.input_hw[0]}x{cfg.input_hw[1]}, {depth} ViT blocks, bf16) '
         f'built and its frame captured in {setup_s:.1f} s; {VIT_FRAMES} '
-        f'replayed frames profiled: {launches} swiglu_tail kernels on the '
-        f'card ({per_frame:g} a frame, all under a cudaGraphLaunch, '
-        f'{wrapped} through the wrappers), the capture counted {captured}; '
+        f'replayed frames profiled: {launches} kernels on the card '
+        f'({per_frame} a frame, all under a cudaGraphLaunch, {wrapped} '
+        f'through the wrappers), the capture counted {captured}; '
         f'{ms:.2f} ms a replayed frame unprofiled (median of {VIT_FRAMES}); '
         f'top score {dets["scores"][0, 0].item():.4f} [{card}]')
     del step, state0, infer
@@ -1786,10 +1804,10 @@ def vit_frames_phase(card):
                 ms_per_frame=ms)
 
 
-def swiglu_tail_phase(card):
-    """Phase 22 (see the module docstring); returns the kernels line's
-    entry."""
-    frames = vit_frames_phase(card)
+def swiglu_tail_phase(card, frames=None):
+    """Phase 22 (see the module docstring) from phase 22a's `frames` (run
+    here when not given); returns the kernels line's entry."""
+    frames = frames or vit_frames_phase(card)
     dev = torch.device('cuda')
     hid = SWIGLU_HID
     width = hid + -hid % 8
@@ -1846,8 +1864,9 @@ def swiglu_tail_phase(card):
         'replaces_note': 'no Pallas kernel: the JAX package has no ViT; the '
                          'SiLU gate, ffn_ln and the pad the port ran as five '
                          'PyTorch passes',
-        'launches': frames['launches'], 'frames_profiled': frames['frames'],
-        'launches_per_frame': frames['per_frame'],
+        'launches': frames['launches'][swiglu_cuda.NAME],
+        'frames_profiled': frames['frames'],
+        'launches_per_frame': frames['per_frame'][swiglu_cuda.NAME],
         'ms_per_frame_vit': frames['ms_per_frame'],
         'max_bf16_steps': steps, 'plain_equal_share': equal_share,
         'bitwise_repeatable': True,
@@ -1859,6 +1878,134 @@ def swiglu_tail_phase(card):
         'gb_per_call': nbytes / 1e9,
         'library_ms': t['library_ms'],
         'library': 'F.silu(a) * g then F.layer_norm on contiguous halves',
+    }
+
+
+def rope_steps(got, want, x, cos, sin):
+    """(the largest distance of got from want in steps, got's and want's
+    largest and root-mean-square errors against the exact rotation of the
+    same inputs). A step is one bf16 step of the larger of the output's and
+    its two products' magnitudes: the plain version rounds x * cos before
+    the add, so a near-cancelling pair keeps that rounding."""
+    xd, cd, sd = x.double(), cos.double(), sin.double()
+    a = xd * cd
+    b = xd.unflatten(-1, (-1, 2)).flip(-1).flatten(-2) * sd
+    exact = a + b
+    mag = torch.maximum(want.double().abs(),
+                        torch.maximum(a.abs(), b.abs())).clamp_min(2.0 ** -60)
+    del a, b, xd
+    # the power of two at or below mag from its exponent bits (the card's
+    # float64 log2 of a power of two may fall below the integer)
+    step = (mag.view(torch.int64) & -2 ** 52).view(torch.float64) * 2.0 ** -7
+    steps = float(((got.double() - want.double()).abs() / step).max())
+    del mag, step
+    errs = []
+    for t in (got, want):
+        e = (t.double() - exact).abs()
+        errs += [float(e.max()), float(e.square().mean().sqrt())]
+    return steps, errs
+
+
+def vit_rope_phase(card, frames=None):
+    """Phase 23 (see the module docstring) from phase 22a's `frames` (run
+    here when not given); returns the kernels line's entry."""
+    frames = frames or vit_frames_phase(card)
+    dev = torch.device('cuda')
+    cfg = StreamPETRViTConfig()
+    bb = cfg.backbone
+    rows, cols = (n // bb.patch_size for n in cfg.input_hw)
+    ws, nh, c = bb.window_size, bb.num_heads, bb.embed_dim
+    d = c // nh
+    windows = -(-rows // ws) * -(-cols // ws)
+    n_global = len(bb.global_blocks)
+    blocks = {'window': (bb.depth - n_global, cfg.num_cams * windows, ws, ws),
+              'global': (n_global, cfg.num_cams, rows, cols)}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for kind, (count, batch, r, cl) in blocks.items():
+        s = r * cl
+        qkv = (2 * torch.randn(batch, s, 3 * c, device=dev, generator=gen)
+               ).bfloat16()
+        x = qkv.view(batch, s, 3, nh, d).permute(2, 0, 3, 1, 4)[:2]
+        cos, sin = vit.rope_tables(r, cl, d, bb.rope_grid, bb.rope_theta,
+                                   dev, torch.bfloat16)
+        before = _build.launch_counts[rope_cuda.NAME]
+        got, again = vit.rope(x, cos, sin), vit.rope(x, cos, sin)
+        want = vit.rope_reference(x, cos, sin)
+        torch.cuda.synchronize()
+        if _build.launch_counts[rope_cuda.NAME] - before != 2:
+            raise AssertionError('vit_rope: not one launch a call')
+        if not torch.equal(got, again):
+            raise AssertionError(f'vit_rope ({kind}): two calls differ')
+        if got.stride() != want.stride():
+            raise AssertionError(f'vit_rope ({kind}): strides {got.stride()}'
+                                 f', the plain version\'s {want.stride()}')
+        steps, (k_max, k_rms, p_max, p_rms) = rope_steps(got, want, x, cos,
+                                                        sin)
+        equal_share = float((got == want).float().mean())
+        if steps > 1 or k_max > p_max or k_rms > p_rms:
+            raise AssertionError(
+                f'vit_rope ({kind}): {steps:.3f} bf16 steps from the plain '
+                f'version; against the exact rotation max {k_max:.3g} / '
+                f'{p_max:.3g} plain, rms {k_rms:.3g} / {p_rms:.3g} plain')
+        del got, again, want
+        xc = x.contiguous()
+        nbytes = 2 * x.numel() * x.element_size()
+        t = dict(ms=device_ms(lambda: vit.rope(x, cos, sin), 20),
+                 cold=cold_l2_ms(lambda: vit.rope(x, cos, sin), 10),
+                 plain_ms=device_ms(
+                     lambda: vit.rope_reference(x, cos, sin), 10),
+                 library_ms=device_ms(
+                     lambda: vit.rope_reference(xc, cos, sin), 10),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, nbytes=nbytes,
+                 blocks=count, steps=steps, equal_share=equal_share,
+                 err_max=k_max, err_rms=k_rms, plain_err_max=p_max,
+                 plain_err_rms=p_rms)
+        log(f'  vit_rope, a {kind} block ({tuple(x.shape)} bf16 view of '
+            f'qkv, {nbytes / 1e6:.1f} MB): {t["ms"]:.4f} ms '
+            f'({t["cold"]:.4f} after an L2 flush), bound '
+            f'{t["bound_ms"]:.4f} ms (bytes, '
+            f'{100 * t["bound_ms"] / t["ms"]:.1f}% of it), plain (the three '
+            f'passes on the view) {t["plain_ms"]:.4f}, the three passes on '
+            f'contiguous q and k {t["library_ms"]:.4f}; {equal_share:.6f} of '
+            f'outputs equal to the plain version\'s, at most {steps:.2f} '
+            f'bf16 steps apart; error against the exact rotation max '
+            f'{k_max:.3g} (plain {p_max:.3g}), rms {k_rms:.3g} (plain '
+            f'{p_rms:.3g}) [{card}]')
+        out[kind] = t
+        del qkv, x, xc
+        torch.cuda.empty_cache()
+    frame = {key: sum(t['blocks'] * t[key] for t in out.values())
+             for key in ('ms', 'cold', 'plain_ms', 'library_ms', 'bound_ms',
+                         'nbytes')}
+    share = 100 * frame['bound_ms'] / frame['ms']
+    log(f'  vit_rope, a frame\'s {bb.depth} blocks ({frame["nbytes"]} B): '
+        f'{frame["ms"]:.4f} ms ({frame["cold"]:.4f} cold), bound '
+        f'{frame["bound_ms"]:.4f} ms ({share:.1f}% of it), plain '
+        f'{frame["plain_ms"]:.4f}, the three passes on contiguous q and k '
+        f'{frame["library_ms"]:.4f} [{card}]')
+    return {
+        'name': rope_cuda.NAME,
+        'source': 'far3d_tpu_torch/csrc/vit_rope.cu',
+        'replaces': None,
+        'replaces_note': 'no Pallas kernel: the JAX package has no ViT; the '
+                         'port ran the rotation as three PyTorch passes',
+        'launches': frames['launches'][rope_cuda.NAME],
+        'frames_profiled': frames['frames'],
+        'launches_per_frame': frames['per_frame'][rope_cuda.NAME],
+        'ms_per_frame_vit': frames['ms_per_frame'],
+        'by_block': out, 'bitwise_repeatable': True,
+        'max_bf16_steps': max(t['steps'] for t in out.values()),
+        'ms': frame['ms'], 'kernel_ms': frame['ms'],
+        'ms_cold_l2': frame['cold'], 'plain_ms': frame['plain_ms'],
+        'plain': 'rope_reference: x * cos, the pair swap\'s flip and addcmul '
+                 'on the strided qkv view (the three passes it replaced), '
+                 'summed over a frame\'s blocks',
+        'bound_ms': frame['bound_ms'], 'bound_by': 'bytes',
+        'gb_per_frame': frame['nbytes'] / 1e9,
+        'library_ms': frame['library_ms'],
+        'library': 'the same three passes on contiguous q and k, summed over '
+                   'a frame\'s blocks',
     }
 
 
@@ -3636,7 +3783,11 @@ def main():
     nusc_tmp.cleanup()
 
     log('== phase 22: the ViT\'s SwiGLU tail at the ViT cell\'s shape')
-    swiglu = swiglu_tail_phase(card)
+    vit_frames = vit_frames_phase(card)
+    swiglu = swiglu_tail_phase(card, vit_frames)
+    log('== phase 23: the ViT\'s rotation of q and k at the ViT cell\'s '
+        'shapes')
+    rope = vit_rope_phase(card, vit_frames)
     dp_launches = {
         name: {'19a_nccl_world1': dp_a['launches'][name],
                '19b_rank0': dp_b[0]['launches'][name],
@@ -3821,7 +3972,7 @@ def main():
         'streampetr_library_ms': petr['tail']['library_ms'],
         'streampetr_torch_sequence_equal_share':
             petr['tail']['equal_share'],
-    }, swiglu]}
+    }, swiglu, rope]}
     log('StreamPETR (phase 18): ' + json.dumps({
         'cross_attention': petr['attn'],
         'bf16_frame_busy_ms': petr['bf16_frame_busy_ms'],

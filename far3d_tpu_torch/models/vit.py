@@ -7,8 +7,9 @@ pretraining grid and resized bicubically to the image's grid, then
 ``depth`` blocks of ``x + attn(norm1(x))``, ``x + mlp(norm2(x))``:
 
 - attention: one ``qkv`` projection without bias, separate ``q_bias`` and
-  ``v_bias`` (k has none), 2D rotary position embedding on q and k, softmax
-  attention, a sub-LayerNorm ``inner_attn_ln``, ``proj``;
+  ``v_bias`` (k has none), 2D rotary position embedding on q and k (one
+  hand-written kernel on the card, ``vit_rope``), softmax attention, a
+  sub-LayerNorm ``inner_attn_ln``, ``proj``;
 - a SwiGLU MLP with a sub-LayerNorm: ``w3(ffn_ln(silu(w1 x) * w2 x))``,
   its tail between the two matmuls one hand-written kernel on the card
   (``swiglu_tail``);
@@ -71,8 +72,9 @@ def rope_tables(rows: int, cols: int, head_dim: int, grid: int,
     each half frequency i < head_dim / 4 is ``theta ** (-4 i / head_dim)``,
     used by one interleaved pair; position p of an axis of length S sits at
     ``p * grid / S``. `sin` carries the sign of the pair's rotation: minus
-    on a pair's first channel, plus on its second (see ``rope``). Made at
-    the first call for its arguments and kept."""
+    on a pair's first channel, plus on its second (see
+    ``rope_reference``). Made at the first call for its arguments and
+    kept."""
     key = (rows, cols, head_dim, grid, theta, torch.device(device), dtype)
     out = _ROPE.get(key)
     if out is None:
@@ -95,14 +97,25 @@ def rope_tables(rows: int, cols: int, head_dim: int, grid: int,
     return out
 
 
-def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-         ) -> torch.Tensor:
+def rope_reference(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                   ) -> torch.Tensor:
     """``x * cos + rotate_pairs(x) * sin`` of EVA-02, where
     ``rotate_pairs`` turns each interleaved pair (a, b) of the last dim into
     (-b, a): with the signs in ``rope_tables``'s `sin`, the pair swapped to
     (b, a) times `sin`."""
     swapped = x.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
     return torch.addcmul(x * cos, swapped, sin)
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+         ) -> torch.Tensor:
+    """``rope_reference`` for a tensor on the CPU, the hand-written kernel
+    (``ops/rope_cuda.py``) for a CUDA one: q and k, the (2, B, nh, S, d)
+    view ``qkv[:2]``, rotated in one pass."""
+    if x.is_cuda:
+        from ..ops.rope_cuda import rope_cuda
+        return rope_cuda(x, cos, sin)
+    return rope_reference(x, cos, sin)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

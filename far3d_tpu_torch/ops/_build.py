@@ -31,7 +31,7 @@ from typing import Dict, List
 CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = ('msda_fwd', 'msda_bwd', 'osa_fused', 'qconv',   # every csrc/<name>.cu
-           'ese_requant', 'swiglu_tail')
+           'ese_requant', 'swiglu_tail', 'vit_rope')
 HOST_SOURCES = ('jpeg_codec',)                        # every csrc/<name>.cpp
 HOST_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

@@ -503,8 +503,8 @@ FRAMES, SCENES, HOOKED = 40, (0, 14, 29), (9, 23)
 def test_graphed_frames_are_bitwise_the_eager_ones_on_the_card(family,
                                                                 cuda_device):
     """Full size (Far3D with its int8 backbone, StreamPETR in bf16, and
-    StreamPETR with the ViT-L backbone in bf16, one ``swiglu_tail`` launch
-    a block):
+    StreamPETR with the ViT-L backbone in bf16, one ``swiglu_tail`` and
+    one ``vit_rope`` launch a block):
     FRAMES frames with scene changes at SCENES and a hooked frame at each
     of HOOKED through one graphed step, against a fresh eager step each
     frame, each side carrying its own state: detections and every state
@@ -556,7 +556,8 @@ def test_graphed_frames_are_bitwise_the_eager_ones_on_the_card(family,
     if family == 'far3d':
         assert per_frame['msda_fwd'] == rig.cfg.decoder.num_layers
     if family == 'streampetr_vit':
-        assert per_frame == {'swiglu_tail': rig.cfg.backbone.depth}
+        depth = rig.cfg.backbone.depth
+        assert per_frame == {'swiglu_tail': depth, 'vit_rope': depth}
     batch = rig.batch(FRAMES)
     run, replayed = _port_kernels(
         lambda: step(rig.model, g_state, batch, rig.quant), per_frame)
